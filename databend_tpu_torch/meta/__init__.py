@@ -1,0 +1,6 @@
+"""Overlay of ``databend_tpu/meta``: the port's modules first, the
+reference's host modules after them (see ``_reference.py``)."""
+
+from .._reference import overlay_package
+
+overlay_package(globals(), "meta")

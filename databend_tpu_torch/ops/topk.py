@@ -1,0 +1,144 @@
+"""K-select (port of ``databend_tpu/ops/topk.py``).
+
+``lax.top_k`` becomes ``torch.topk(largest=False)``. The reference's
+``approx_min_k`` also becomes ``torch.topk``: XLA lowers ``approx_min_k`` to
+an exact top-k off the TPU, and the fused approximate selector of this port
+is the flash kernel (``ops/flash_topk.py``). The streaming scan is a Python
+loop that carries the running ``[B, k]`` set, the counterpart of the
+reference's ``lax.scan``. Selectors carry ``(distance, id)`` pairs so merges
+keep global row ids.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .distance import _dot, pairwise_distance
+
+INF = float("inf")
+
+
+def topk_smallest(dists: torch.Tensor, k: int,
+                  ids: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Smallest-k per row of ``dists [B, N]`` -> (values, indices) ``[B, k]``
+    ascending. ``ids``: optional ``[N]`` or ``[B, N]`` global ids returned
+    instead of positions. The reference's ``approx=True`` (``approx_min_k``)
+    has no counterpart: its port is this exact selection."""
+    vals, pos = torch.topk(dists, k, dim=1, largest=False)
+    if ids is not None:
+        if ids.ndim == 1:
+            return vals, ids[pos]
+        return vals, torch.gather(ids, 1, pos)
+    return vals, pos
+
+
+def chunked_topk_smallest(q: torch.Tensor, x: torch.Tensor, k: int,
+                          metric: str, chunk_rows: int = 131072,
+                          compute_dtype=torch.float32,
+                          x_sq_norms: Optional[torch.Tensor] = None,
+                          base_id: int = 0,
+                          n_valid: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scan + score + k-select over ``x [N, d]`` in chunks of ``chunk_rows``:
+    each chunk's scores fold into the running ``[B, k]`` set with one top-k
+    over ``[B, k + chunk]``, so peak memory is one chunk, not ``[B, N]``.
+    A ragged last chunk needs no padding.
+
+    ``n_valid``: rows with global id >= n_valid are padding and score +inf
+    BEFORE selection (index masking is the only metric-safe pad exclusion).
+    Returns (distances ``[B, k]``, global ids ``base_id + row``)."""
+    n = x.shape[0]
+    b = q.shape[0]
+    dev = x.device
+    if n <= chunk_rows:
+        dists = pairwise_distance(q, x, metric, compute_dtype, x_sq_norms)
+        ids = torch.arange(n, device=dev) + base_id
+        if n_valid is not None:
+            dists = torch.where(ids[None, :] < n_valid, dists, INF)
+        return topk_smallest(dists, min(k, n), ids=ids)
+    best_v = torch.full((b, k), INF, dtype=torch.float32, device=dev)
+    best_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
+    for start in range(0, n, chunk_rows):
+        xi = x[start:start + chunk_rows]
+        ni = None if x_sq_norms is None else x_sq_norms[start:start + chunk_rows]
+        dists = pairwise_distance(q, xi, metric, compute_dtype, ni)
+        ids = torch.arange(xi.shape[0], device=dev) + (base_id + start)
+        if n_valid is not None:
+            dists = torch.where(ids[None, :] < n_valid, dists, INF)
+        cat_v = torch.cat([best_v, dists], dim=1)
+        cat_i = torch.cat([best_i, ids.expand(b, -1)], dim=1)
+        best_v, pos = torch.topk(cat_v, k, dim=1, largest=False)
+        best_i = torch.gather(cat_i, 1, pos)
+    return best_v, best_i
+
+
+def merge_topk(dists: torch.Tensor, ids: torch.Tensor,
+               k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-shard/per-block top-k lists (``[S, B, k_s]`` stacked or
+    ``[B, S*k_s]`` concatenated) into one global top-k."""
+    if dists.ndim == 3:
+        s, b, ks = dists.shape
+        dists = dists.permute(1, 0, 2).reshape(b, s * ks)
+        ids = ids.permute(1, 0, 2).reshape(b, s * ks)
+    vals, pos = torch.topk(dists, min(k, dists.shape[1]), dim=1,
+                           largest=False)
+    return vals, torch.gather(ids, 1, pos)
+
+
+def pad_corpus(x, multiple: int):
+    """Pad an ``[N, d]`` numpy corpus to a row multiple with large-magnitude
+    rows placed after the real ones; returns (padded, n_valid)."""
+    n = x.shape[0]
+    rem = (-n) % multiple
+    if rem == 0:
+        return x, n
+    pad = np.full((rem, x.shape[1]), 1e18, dtype=np.float32)
+    return np.concatenate([np.asarray(x, dtype=np.float32), pad], axis=0), n
+
+
+def brute_force_topk(q: torch.Tensor, x: torch.Tensor, k: int,
+                     metric: str = "l2", chunk_rows: int = 131072,
+                     bf16: bool = False,
+                     x_sq_norms: Optional[torch.Tensor] = None):
+    """End-to-end exact scan: score ``[B,d] x [N,d]`` + k-select."""
+    cd = torch.bfloat16 if bf16 else torch.float32
+    return chunked_topk_smallest(q, x, k, metric, chunk_rows=chunk_rows,
+                                 compute_dtype=cd, x_sq_norms=x_sq_norms)
+
+
+def rerank_topk(q: torch.Tensor, x_bf16: torch.Tensor,
+                x_sq_norms: torch.Tensor, x_f32: torch.Tensor, k: int,
+                metric: str = "l2",
+                shortlist: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-phase top-k: a bf16 distance matmul over the whole corpus picks
+    ``shortlist`` candidates (default 8k), whose f32 vectors are re-scored
+    exactly before the final top-k. Metrics: l2, l2_sq, ip, cosine (pass a
+    pre-normalized corpus and queries for cosine)."""
+    if shortlist <= 0:
+        shortlist = 8 * k
+    q32 = q.float()
+    dots = _dot(q, x_bf16, torch.bfloat16)                        # [B, N]
+    if metric in ("l2", "l2_sq"):
+        qq = torch.sum(q32 * q32, dim=-1, keepdim=True)
+        approx_d = qq - 2.0 * dots + x_sq_norms[None, :]
+    elif metric in ("ip", "cosine"):
+        approx_d = -dots
+    else:
+        raise ValueError(f"rerank_topk: unsupported metric {metric!r}")
+    _, cand = torch.topk(approx_d, shortlist, dim=1, largest=False)  # [B, S]
+
+    cand_vecs = x_f32[cand]                                       # [B, S, d]
+    if metric in ("l2", "l2_sq"):
+        diff = cand_vecs - q32[:, None, :]
+        exact = torch.sum(diff * diff, dim=-1)
+        if metric == "l2":
+            exact = torch.sqrt(torch.clamp_min(exact, 0.0))
+    else:
+        exact = -torch.einsum("bsd,bd->bs", cand_vecs, q32)
+    vals, pos = torch.topk(exact, k, dim=1, largest=False)
+    return vals, torch.gather(cand, 1, pos)
+

@@ -1,0 +1,136 @@
+"""The port never imports jax or the databend_tpu package.
+
+The slice runs in a subprocess (tests/conftest.py imports jax into this
+one) behind a ``sys.meta_path`` blocker on jax/jaxlib; afterwards neither
+jax nor any ``databend_tpu.*`` module may be loaded.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = r"""
+import sys
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError("jax is blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+sys.path.insert(0, REPO)
+
+import tempfile
+import numpy as np
+import databend_tpu_torch as dt
+from databend_tpu_torch.expression import Column, DataBlock
+from databend_tpu_torch.types import VectorType
+
+n, d = 5000, 16
+rng = np.random.default_rng(0)
+x = rng.standard_normal((n, d)).astype(np.float32)
+with tempfile.TemporaryDirectory() as root:
+    ctx = dt.SessionContext(root)
+    ctx.sql(f"CREATE TABLE t (id BIGINT, emb VECTOR({d})) ROW_PER_BLOCK='4096'")
+    ctx.sql("CREATE VECTOR INDEX tv ON t(emb) distance='l2,cosine'")
+    ctx.insert_block("t", DataBlock(
+        ["id", "emb"], [Column.from_numpy(np.arange(n, dtype=np.int64)),
+                        Column.from_numpy(x, VectorType(d))]))
+    ctx.sql("SET vector_host_scan_max_rows = 0")
+    lit = "[" + ",".join("%.5f" % v for v in x[3]) + "]"
+    rows = ctx.sql("SELECT id FROM t ORDER BY l2_distance(emb, " + lit
+                   + ") LIMIT 5").rows()
+    assert rows[0] == (3,), rows
+    ctx.sql("SELECT id, cosine_distance(emb, " + lit + ") AS s FROM t "
+            "ORDER BY s LIMIT 5").rows()
+    ps = ctx.prepare("SELECT id FROM t ORDER BY l2_distance(emb, ?) LIMIT 10")
+    assert ps.execute_batch(x[:4])[2].rows()[0] == (2,)
+    for exact in (True, False):
+        blk = ps.execute_batch_block(x[:300], exact=exact)
+        assert blk.rows()[10] == (1, 1), blk.rows()[10]
+    fps = ctx.prepare("SELECT id FROM t WHERE id < ? "
+                      "ORDER BY cosine_distance(emb, ?) LIMIT 10")
+    assert fps.execute_batch([(100, x[5])], exact=False)[0].rows()[0] == (5,)
+    # aggregates consult the relational device routes, which the port declines
+    got = ctx.sql("SELECT id % 3 AS g, count(*), sum(id) FROM t "
+                  "WHERE id < 4000 GROUP BY g ORDER BY g").rows()
+    ids = np.arange(4000)
+    assert got == [(g, int((ids % 3 == g).sum()), int(ids[ids % 3 == g].sum()))
+                   for g in range(3)], got
+    got = ctx.sql("SELECT id % 7 AS g, count(*) AS c FROM t GROUP BY g "
+                  "HAVING count(*) > 714 ORDER BY c DESC, g LIMIT 2").rows()
+    assert got == [(0, 715), (1, 715)], got
+    assert "databend_tpu_torch.pipeline.device_scan_agg" in sys.modules
+    # MERGE INTO binds its source through the port's binder
+    ctx.sql("CREATE TABLE m (id BIGINT, v BIGINT)")
+    ctx.sql("CREATE TABLE s (id BIGINT, v BIGINT)")
+    ctx.sql("INSERT INTO m VALUES (1, 1), (2, 2)")
+    ctx.sql("INSERT INTO s VALUES (2, 20), (3, 30)")
+    ctx.sql("MERGE INTO m USING s ON m.id = s.id WHEN MATCHED THEN UPDATE "
+            "SET v = s.v WHEN NOT MATCHED THEN INSERT (id, v) VALUES (s.id, s.v)")
+    got = sorted(ctx.sql("SELECT id, v FROM m").rows())
+    assert got == [(1, 1), (2, 20), (3, 30)], got
+    # the system tables that describe the devices, and a server's node entry
+    opts = dict(ctx.sql("SELECT name, value FROM system.build_options").rows())
+    assert opts["device_platform"] == "cpu" and opts["device_count"] == "1"
+    devs = [r for r in ctx.sql("SELECT name, host FROM system.clusters").rows()
+            if r[0].startswith("device-")]
+    assert devs == [("device-0", "cpu")], devs
+    from databend_tpu_torch.meta.cluster import ClusterDiscovery
+    assert ClusterDiscovery.local_node().device_count == 1
+    ctx.close()
+
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "databend_tpu"))
+print("LOADED", bad)
+print("PORT_MODULES", sum(m.startswith("databend_tpu_torch") for m in sys.modules))
+"""
+
+
+def test_slice_runs_without_jax():
+    env = dict(os.environ, DATABEND_TORCH_DEVICE="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c", _SCRIPT.replace("REPO", repr(REPO), 1)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "LOADED []" in out.stdout, out.stdout
+    n_port = int(re.search(r"PORT_MODULES (\d+)", out.stdout).group(1))
+    assert n_port > 50          # the host layers loaded under the port's name
+
+
+def test_port_sources_import_no_jax():
+    pat = re.compile(r"^\s*(import jax|from jax|import databend_tpu\b(?!_)"
+                     r"|from databend_tpu\b(?!_))", re.M)
+    hits = []
+    for dirpath, _, files in os.walk(os.path.join(REPO, "databend_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(dirpath, f)
+                with open(path, encoding="utf-8") as fh:
+                    if pat.search(fh.read()):
+                        hits.append(path)
+    assert hits == []
+
+
+def test_unported_jax_modules_ratchet():
+    """Reference modules that import jax and have no port counterpart yet
+    (ROADMAP "Port state"); the count only goes down."""
+    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    ref = os.path.join(REPO, "databend_tpu")
+    left = []
+    for dirpath, _, files in os.walk(ref):
+        for f in files:
+            path = os.path.join(dirpath, f)
+            rel = os.path.relpath(path, ref)
+            if not f.endswith(".py"):
+                continue
+            with open(path, encoding="utf-8") as fh:
+                if not pat.search(fh.read()):
+                    continue
+            if not os.path.exists(os.path.join(REPO, "databend_tpu_torch", rel)):
+                left.append(rel)
+    assert len(left) <= 11, sorted(left)
