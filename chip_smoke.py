@@ -7,17 +7,27 @@ Phases (any failure exits non-zero and prints no result line):
   2. build the hand-written kernels from databend_tpu_torch/csrc/;
   3. each kernel against its plain PyTorch version at the serving shapes
      (1M x 128 corpus padded to the flash tile, B in {256, 1024}, l2 and ip,
-     with pad rows), timed with CUDA events; then at wide embeddings
+     with pad rows), timed with CUDA events beside its bound (one read of
+     its inputs and one write of its output at 3.35 TB/s, or its bf16
+     FLOPs at 989 TFLOP/s, whichever is larger); then at wide embeddings
      (D in {400, 768, 1536}, shared memory does not grow with D);
   4. the main path: SessionContext, CREATE TABLE / VECTOR INDEX, insert of
      1,000,000 SIFT1M-shaped rows (128-d integer values in [0, 255], seed 7),
      a literal KNN query, execute_batch (B=256), execute_batch_block
-     (B=1024, exact and approximate) and a cosine batch; recall@10 against a
-     numpy ground truth on 16 queries, launch counts of every kernel;
+     (B=1024, exact and approximate; B=256 approximate runs the exact
+     program and launches no kernel) and a cosine batch; recall@10 against
+     a numpy ground truth on 16 queries, launch counts of every kernel;
   5. with --profile, after the launch counts are read: torch.profiler over
      3 batches of each execute_batch_block mode (whole call, _topk, device
      busy, the biggest device items);
-  6. no jax module was loaded.
+  6. [cluster]: CREATE TABLE ... CLUSTER BY (emb) and an insert of 262,144
+     SIFT-shaped rows (the reference's batch of 64 clusters): k-means runs
+     on the card, its cluster runs cover every row once, and a KNN query on
+     the clustered table reaches recall@10 >= 0.99;
+  7. [suites]: ``python -m databend_tpu_torch sqllogic tests/suites/index``
+     on the card exits 0;
+  8. stand-alone: every loaded port module comes from the port's own
+     directory, and no jax or databend_tpu module was loaded.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -38,6 +48,9 @@ N_GT = 16              # queries with a numpy ground truth
 SEED = 7
 REPS = 5               # timed batches per serving mode (after one warm-up)
 FLASH_TOL = 1e-3       # kernel vs plain: atol FLASH_TOL * max|score| (f32 sums in another order)
+CLUSTER_ROWS = 262_144  # the reference's k-means batch (index/kmeans.py)
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 
 
 def check(cond, msg):
@@ -100,6 +113,21 @@ def recall(ids, d, kth):
     return hits / (ids.shape[0] * K)
 
 
+def flash_bound(q, xb, nb, tile=16384, lanes=128):
+    """(ms, "bytes" or "operations"): the least time one flash_group_minima
+    call could take on the card: one read of q, the bf16 corpus and its
+    norms plus one write of the [N/T, B, L] f32 minima at the memory rate,
+    or its 2*B*N*D bf16 FLOPs at the tensor-core peak, whichever is
+    larger."""
+    b = q.shape[0]
+    n, d = xb.shape
+    nbytes = sum(t.numel() * t.element_size() for t in (q, xb, nb)) \
+        + (n // tile) * b * lanes * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * b * n * d / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_kernels(card):
     from databend_tpu_torch.ops import _cuda
     from databend_tpu_torch.ops.flash_topk import (
@@ -133,10 +161,12 @@ def phase_kernels(card):
                   f"kernel vs plain {metric} B={b}: {err} > {FLASH_TOL} * {scale}")
             ms = cuda_ms(lambda: flash_group_minima(q, xb, nb, metric))
             plain_ms = cuda_ms(lambda: _flash_group_minima_plain(q, xb, nb, metric))
-            results[(metric, b, DIM)] = (err, ms, plain_ms)
+            bound_ms, bound_by = flash_bound(q, xb, nb)
+            results[(metric, b, DIM)] = (err, ms, plain_ms, bound_ms, bound_by)
             print(f"[kernel] flash_group_minima {metric} B={b} N={xb.shape[0]} "
                   f"D={DIM}: max_abs_err {err} (scale {scale}), kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
             del q, got, want
         del xb, nb
         torch.cuda.empty_cache()
@@ -161,10 +191,12 @@ def phase_kernels(card):
               f"kernel vs plain {metric} B={b} D={d}: {err} > {FLASH_TOL} * {scale}")
         ms = cuda_ms(lambda: flash_group_minima(q, xb, nb, metric))
         plain_ms = cuda_ms(lambda: _flash_group_minima_plain(q, xb, nb, metric))
-        results[(metric, b, d)] = (err, ms, plain_ms)
+        bound_ms, bound_by = flash_bound(q, xb, nb)
+        results[(metric, b, d)] = (err, ms, plain_ms, bound_ms, bound_by)
         print(f"[kernel] flash_group_minima {metric} B={b} N={xb.shape[0]} "
               f"D={d}: max_abs_err {err} (scale {scale}), kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
         del x, xb, nb, q, got, want
     torch.cuda.empty_cache()
     return results
@@ -280,6 +312,123 @@ def run_queries(ctx, queries, gt, card, ft):
             check(bp._knn._flash_state()[0].is_cuda,
                   "flash corpus not on the card")
 
+    # a batch of one 256-query chunk runs the exact program in both modes
+    bp = ctx.prepare(sql.format(fn="l2_distance"))
+    before = ft.flash_group_minima.launches
+    t0 = time.perf_counter()
+    res = bp.execute_batch_block(sets[:256], exact=False)
+    dt_b = time.perf_counter() - t0
+    grew = ft.flash_group_minima.launches - before
+    ids, _ = _ids_scores(res, 256)
+    r = recall(ids[:N_GT], d_l2, kth_l2)
+    print(f"[main] execute_batch_block l2 exact=False B=256: {dt_b * 1e3:.3f} ms "
+          f"(one batch), recall@10 {r}, flash launches {grew} [{card}]")
+    check(grew == 0, "a one-chunk approximate batch launched the flash kernel")
+    check(r >= 0.99, f"one-chunk approximate batch: recall {r}")
+
+
+def phase_cluster(card):
+    """CLUSTER BY over a vector column: k-means on the card at the
+    reference's operating point, then a KNN query on the clustered table."""
+    import databend_tpu_torch as dt
+    from databend_tpu_torch.expression import Column, DataBlock
+    from databend_tpu_torch.index import kmeans
+    from databend_tpu_torch.types import VectorType
+
+    rng = np.random.default_rng(SEED + 1)
+    centers = rng.integers(0, 256, size=(1000, DIM)).astype(np.float32)
+    x = sift_like(rng, CLUSTER_ROWS, centers)
+    queries = sift_like(rng, N_GT, centers)
+    d_l2, kth = ground_truth(x, queries, "l2")
+    seen = {"devices": set()}
+    real_lloyd, real_layout = kmeans._lloyd, kmeans.cluster_layout
+
+    def lloyd(xt, init, iters=10):
+        seen["devices"].add(xt.device.type)
+        return real_lloyd(xt, init, iters)
+
+    def layout(vectors, *a, **kw):
+        seen["order"], seen["runs"] = real_layout(vectors, *a, **kw)
+        return seen["order"], seen["runs"]
+
+    kmeans._lloyd, kmeans.cluster_layout = lloyd, layout
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            ctx = dt.SessionContext(root)
+            try:
+                ctx.sql(f"CREATE TABLE c (id BIGINT, emb VECTOR({DIM}), "
+                        "VECTOR INDEX cv (emb) distance='l2') CLUSTER BY (emb)")
+                t0 = time.perf_counter()
+                ctx.insert_block("c", DataBlock(
+                    ["id", "emb"],
+                    [Column.from_numpy(np.arange(CLUSTER_ROWS, dtype=np.int64)),
+                     Column.from_numpy(x, VectorType(DIM))]))
+                insert_s = time.perf_counter() - t0
+                t = ctx.table("c")
+                blocks = sum(len(seg.blocks)
+                             for seg in t.read_segments(t.read_snapshot()))
+                ids = []
+                for q in queries:
+                    lit = "[" + ",".join(str(int(v)) for v in q) + "]"
+                    rows = ctx.sql(f"SELECT id FROM c ORDER BY "
+                                   f"l2_distance(emb, {lit}) LIMIT 10").rows()
+                    ids.append([i for (i,) in rows])
+            finally:
+                ctx.close()
+    finally:
+        kmeans._lloyd, kmeans.cluster_layout = real_lloyd, real_layout
+    order, runs = seen.get("order"), seen.get("runs")
+    r = recall(np.array(ids), d_l2, kth)
+    print(f"[cluster] insert {CLUSTER_ROWS} rows x {DIM} with CLUSTER BY (emb): "
+          f"{insert_s:.3f} s (k-means on {sorted(seen['devices'])}, "
+          f"{len(runs or [])} cluster runs, {blocks} blocks), KNN recall@10 "
+          f"{r} on {N_GT} queries [{card}]")
+    check(seen["devices"] == {"cuda"}, f"k-means ran on {seen['devices']}")
+    check(order is not None and np.array_equal(np.sort(order),
+                                               np.arange(CLUSTER_ROWS)),
+          "the cluster order is not a permutation of the rows")
+    check(sum(runs) == CLUSTER_ROWS, f"cluster runs cover {sum(runs)} rows")
+    check(r >= 0.99, f"clustered KNN recall {r}")
+
+
+def phase_suites(card):
+    """The index sqllogictest suite through the port's entry point, on the
+    card (no device override in its environment)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "DATABEND_TORCH_DEVICE"}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "databend_tpu_torch", "sqllogic",
+             os.path.join("tests", "suites", "index"), "--data-root", root],
+            cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    print(f"[suites] python -m databend_tpu_torch sqllogic tests/suites/index: "
+          f"exit {proc.returncode}, {lines[-1] if lines else ''!r}, "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    check(proc.returncode == 0,
+          f"sqllogic failed:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+
+
+def check_standalone():
+    """Every loaded port module comes from the port's own directory; no
+    jax, jaxlib or databend_tpu module was loaded."""
+    port = os.path.realpath(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "databend_tpu_torch"))
+    mods = {m: getattr(mod, "__file__", None)
+            for m, mod in list(sys.modules.items())
+            if m.split(".")[0] == "databend_tpu_torch"}
+    strays = sorted(m for m, f in mods.items()
+                    if f and not os.path.realpath(f).startswith(port + os.sep))
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "databend_tpu"))
+    print(f"[standalone] {len(mods)} port modules loaded, all from {port}: "
+          f"{not strays}; jax / databend_tpu modules loaded: {leaked}")
+    check(not strays, f"port modules from elsewhere: {strays}")
+    check("databend_tpu_torch._reference" not in mods,
+          "databend_tpu_torch._reference is loaded")
+    check(not leaked, f"reference modules loaded: {leaked}")
+
 
 def _device_us(ev) -> float:
     us = getattr(ev, "self_device_time_total", None)
@@ -354,18 +503,20 @@ def main():
     kern = phase_kernels(card)
     launches = phase_main_path(card, "--profile" in sys.argv[1:])
     check(launches > 0, "the main path launched flash_group_minima no time")
-    leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "databend_tpu"))
-    check(not leaked, f"reference modules loaded: {leaked}")
+    phase_cluster(card)
+    phase_suites(card)
+    check_standalone()
 
     err = max(v[0] for v in kern.values())
-    _, ms, plain_ms = kern[("l2", 256, DIM)]  # the serving chunk shape
+    # the serving chunk shape
+    _, ms, plain_ms, bound_ms, bound_by = kern[("l2", 256, DIM)]
     print(json.dumps({"kernels": [{
         "name": "flash_group_minima", "route": "cuda",
         "source": "databend_tpu_torch/csrc/flash_group_minima.cu",
         "replaces": "databend_tpu/ops/flash_topk.py:94",
         "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,25 +1,19 @@
 """databend_tpu_torch — the PyTorch/CUDA port of ``databend_tpu``.
 
-An overlay package: ``__path__`` lists this directory first and the
-reference ``databend_tpu`` directory second, so host-only modules (parser,
-binder, planner, executor, Fuse storage, meta) load from the reference
-source under ``databend_tpu_torch.*`` names, while the modules that touch the
-device are the port's own (``ops``, the vector seams of ``storage.fuse.table``,
-``service.prepared``, ...). The port imports ``torch``; device choice lives
-in :mod:`databend_tpu_torch.backend`. Its own modules never import ``jax``
-or the ``databend_tpu`` package, and the relational device routes decline
-to the host. Two features not ported yet still reach reference JAX code
-through the overlay: CLUSTER BY over a vector column (``index/kmeans.py``)
-and the device BM25 scorer (``index/inverted/device.py``); see ROADMAP.md.
+A package of its own beside the JAX reference: it holds its own copy of
+every host layer it uses (parser, binder, planner, executor, Fuse storage,
+meta, servers), and its device layers run on torch, with the hand-written
+CUDA kernels under ``csrc/``. Device choice lives in
+:mod:`databend_tpu_torch.backend`. The port never imports ``jax`` or the
+``databend_tpu`` package and reads none of its files;
+``tests/test_torch_standalone.py`` checks that every copied host module is
+still byte-identical to its reference, apart from a named list of modules
+the port owns. What is not ported yet (device BM25, SQ-u8 quantization,
+the mesh in ``parallel``, the HNSW graph build and search) fails with
+ImportError or NotImplementedError or declines to the host; see ROADMAP.md.
 """
 
-import os as _os
-
-__path__ = [_os.path.dirname(_os.path.abspath(__file__)),
-            _os.path.join(_os.path.dirname(_os.path.dirname(
-                _os.path.abspath(__file__))), "databend_tpu")]
-
-from .version import __version__  # noqa: E402
+from .version import __version__
 
 __all__ = ["__version__", "SessionContext"]
 

@@ -1,6 +1,15 @@
-"""Overlay of ``databend_tpu/expression``: the port's modules first, the
-reference's host modules after them (see ``_reference.py``)."""
+from .column import Column, StringData
+from .block import DataBlock
+from .schema import DataField, TableSchema, VECTOR_SCORE_COL_NAME, SEARCH_SCORE_COL_NAME, SEARCH_MATCHED_COL_NAME, ROW_ID_COL_NAME
 
-from .._reference import overlay_package
-
-overlay_package(globals(), "expression")
+__all__ = [
+    "Column",
+    "StringData",
+    "DataBlock",
+    "DataField",
+    "TableSchema",
+    "VECTOR_SCORE_COL_NAME",
+    "SEARCH_SCORE_COL_NAME",
+    "SEARCH_MATCHED_COL_NAME",
+    "ROW_ID_COL_NAME",
+]

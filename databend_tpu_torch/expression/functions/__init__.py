@@ -1,6 +1,14 @@
-"""Overlay of ``databend_tpu/expression/functions``: the port's modules first, the
-reference's host modules after them (see ``_reference.py``)."""
+from .registry import FunctionRegistry, ScalarFunction, registry
 
-from ..._reference import overlay_package
+# importing these modules registers their functions
+from . import arithmetic, comparison, math_fns, string_fns, string_more, hash_url_fns, datetime_fns, vector_fns, conditional, array_fns, variant_fns, variant_more, geo_fns, map_fns  # noqa: F401
+from .aggregates import AGGREGATE_FUNCTIONS, AggregateFunction, create_aggregate
 
-overlay_package(globals(), "expression/functions")
+__all__ = [
+    "FunctionRegistry",
+    "ScalarFunction",
+    "registry",
+    "AGGREGATE_FUNCTIONS",
+    "AggregateFunction",
+    "create_aggregate",
+]

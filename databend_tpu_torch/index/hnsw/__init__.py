@@ -2,8 +2,8 @@
 
 ``HnswGraph`` is the reference's numpy-only container (``graph.py``). The
 graph build and beam search are JAX programs in the reference and are not
-ported yet (ROADMAP.md, "Modules to port": HNSW). This package does not
-extend ``__path__``, so their reference modules never load here.
+ported yet (ROADMAP.md, "Modules to port": HNSW); the port has no
+``build.py`` or ``search.py``.
 Tables index blocks of up to 2^20 rows without a graph (``graphs='auto'``)
 and serve them with the exact scan, so the exact-KNN path never calls these.
 """

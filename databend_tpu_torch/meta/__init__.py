@@ -1,6 +1,3 @@
-"""Overlay of ``databend_tpu/meta``: the port's modules first, the
-reference's host modules after them (see ``_reference.py``)."""
+from .kv import MetaStore
 
-from .._reference import overlay_package
-
-overlay_package(globals(), "meta")
+__all__ = ["MetaStore"]

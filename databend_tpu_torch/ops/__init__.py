@@ -1,6 +1,6 @@
 """Device kernels of the port (PyTorch, plus hand-written CUDA under
-``csrc/``). Not an overlay: a reference ``ops`` module the port has not
-ported (``quantization``) fails to import instead of loading JAX source."""
+``csrc/``). A reference ``ops`` module the port has not ported yet
+(``quantization``) has no file here and fails to import."""
 
 from .distance import (
     pairwise_distance,

@@ -17,8 +17,7 @@ import subprocess
 import threading
 import time
 
-from .._reference import PORT_DIR
-
+PORT_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PORT_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PORT_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

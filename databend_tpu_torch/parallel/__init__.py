@@ -1,8 +1,7 @@
-"""Mesh and exchanges: not ported yet (ROADMAP.md, "Modules to port").
+"""Mesh and exchanges: not ported yet (ROADMAP.md item 11).
 
-The reference's modules here are JAX sharding programs. This package does
-not extend ``__path__``, so ``from ..parallel import ...`` fails with an
-ImportError instead of loading them. The port sets
-``enable_distributed`` only with more than one CUDA device, so a one-card
-query never comes here.
+The reference's modules here are JAX sharding programs. The port has none
+of them, so ``from ..parallel import ...`` fails with ImportError. The
+binder keeps ``enable_distributed`` off, so a host with several cards
+answers a query on one and never comes here.
 """

@@ -1,6 +1,3 @@
-"""Overlay of ``databend_tpu/pipeline``: the port's modules first, the
-reference's host modules after them (see ``_reference.py``)."""
+from .executor import execute_plan, execute_plan_blocks
 
-from .._reference import overlay_package
-
-overlay_package(globals(), "pipeline")
+__all__ = ["execute_plan", "execute_plan_blocks"]

@@ -1,6 +1,4 @@
-"""Overlay of ``databend_tpu/sql``: the port's modules first, the
-reference's host modules after them (see ``_reference.py``)."""
+from .tokenizer import Token, tokenize
+from .parser import parse_sql
 
-from .._reference import overlay_package
-
-overlay_package(globals(), "sql")
+__all__ = ["Token", "tokenize", "parse_sql"]

@@ -1,6 +1,4 @@
-"""Overlay of ``databend_tpu/storage/fuse``: the port's modules first, the
-reference's host modules after them (see ``_reference.py``)."""
+from .table import FuseTable
+from .snapshot import BlockMeta, SegmentInfo, TableSnapshot, ColumnStats
 
-from ..._reference import overlay_package
-
-overlay_package(globals(), "storage/fuse")
+__all__ = ["FuseTable", "BlockMeta", "SegmentInfo", "TableSnapshot", "ColumnStats"]

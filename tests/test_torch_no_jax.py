@@ -1,8 +1,10 @@
 """The port never imports jax or the databend_tpu package.
 
 The slice runs in a subprocess (tests/conftest.py imports jax into this
-one) behind a ``sys.meta_path`` blocker on jax/jaxlib; afterwards neither
-jax nor any ``databend_tpu.*`` module may be loaded.
+one) behind a ``sys.meta_path`` blocker on jax, jaxlib and databend_tpu;
+afterwards no such module may be loaded, and every port module must have
+been loaded from the port's own directory. ``test_torch_standalone.py``
+runs the same script from a copy of the port alone.
 """
 
 import os
@@ -17,13 +19,17 @@ import sys
 
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked: " + name)
+        if name.split(".")[0] in ("jax", "jaxlib", "databend_tpu"):
+            raise ImportError("blocked: " + name)
         return None
 
 sys.meta_path.insert(0, _Block())
 sys.path.insert(0, REPO)
 
+import contextlib
+import io
+import os
+import runpy
 import tempfile
 import numpy as np
 import databend_tpu_torch as dt
@@ -82,7 +88,44 @@ with tempfile.TemporaryDirectory() as root:
     assert devs == [("device-0", "cpu")], devs
     from databend_tpu_torch.meta.cluster import ClusterDiscovery
     assert ClusterDiscovery.local_node().device_count == 1
+    credits = dict(ctx.sql("SELECT * FROM system.credits").rows())
+    assert "torch" in credits and "jax" not in credits, credits
+    # CLUSTER BY over a vector column: k-means on torch
+    ctx.sql(f"CREATE TABLE c (id BIGINT, emb VECTOR({d}), VECTOR INDEX cv "
+            "(emb) distance='l2') CLUSTER BY (emb) ROW_PER_BLOCK='1024'")
+    ctx.insert_block("c", DataBlock(
+        ["id", "emb"], [Column.from_numpy(np.arange(3000, dtype=np.int64)),
+                        Column.from_numpy(x[:3000], VectorType(d))]))
+    rows = ctx.sql("SELECT id FROM c ORDER BY l2_distance(emb, " + lit
+                   + ") LIMIT 5").rows()
+    assert rows[0] == (3,), rows
+    assert "databend_tpu_torch.index.kmeans" in sys.modules
+    # a prepared match() declines to the generic path (host BM25)
+    ctx.sql("CREATE TABLE mt (id BIGINT, body VARCHAR)")
+    ctx.sql("CREATE INVERTED INDEX mt_i ON mt(body)")
+    ctx.sql("INSERT INTO mt VALUES (1, 'red fox'), (2, 'blue whale'), "
+            "(3, 'red whale whale')")
+    mp = ctx.prepare("SELECT id FROM mt WHERE match(body, ?) "
+                     "ORDER BY score() DESC LIMIT 2")
+    assert mp.execute("whale").rows() == [(3,), (2,)]
     ctx.close()
+
+# the entry point
+sys.argv = ["databend_tpu_torch", "version"]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    try:
+        runpy.run_module("databend_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+assert out.getvalue().startswith("databend_tpu_torch v"), out.getvalue()
+
+port_dir = os.path.join(os.path.realpath(REPO), "databend_tpu_torch") + os.sep
+strays = sorted(m for m, mod in list(sys.modules.items())
+                if m.startswith("databend_tpu_torch")
+                and getattr(mod, "__file__", None)
+                and not os.path.realpath(mod.__file__).startswith(port_dir))
+print("STRAYS", strays)
 
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "databend_tpu"))
@@ -91,15 +134,24 @@ print("PORT_MODULES", sum(m.startswith("databend_tpu_torch") for m in sys.module
 """
 
 
-def test_slice_runs_without_jax():
+def run_slice_script(root: str, cwd: str = None) -> None:
+    """Run the slice script against the ``databend_tpu_torch`` under
+    ``root`` in a fresh interpreter (torch on the CPU) and check what it
+    loaded."""
     env = dict(os.environ, DATABEND_TORCH_DEVICE="cpu")
+    env.pop("PYTHONPATH", None)
     out = subprocess.run(
-        [sys.executable, "-c", _SCRIPT.replace("REPO", repr(REPO), 1)],
-        capture_output=True, text=True, env=env, timeout=300)
+        [sys.executable, "-c", _SCRIPT.replace("REPO", repr(root))],
+        capture_output=True, text=True, env=env, cwd=cwd, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     assert "LOADED []" in out.stdout, out.stdout
+    assert "STRAYS []" in out.stdout, out.stdout
     n_port = int(re.search(r"PORT_MODULES (\d+)", out.stdout).group(1))
-    assert n_port > 50          # the host layers loaded under the port's name
+    assert n_port > 50          # the port's own host layers
+
+
+def test_slice_runs_without_jax():
+    run_slice_script(REPO)
 
 
 def test_port_sources_import_no_jax():
@@ -133,4 +185,4 @@ def test_unported_jax_modules_ratchet():
                     continue
             if not os.path.exists(os.path.join(REPO, "databend_tpu_torch", rel)):
                 left.append(rel)
-    assert len(left) <= 11, sorted(left)
+    assert len(left) <= 9, sorted(left)

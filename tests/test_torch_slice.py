@@ -199,7 +199,7 @@ def test_flash_state_is_lazy_and_shared(tmp_path):
     t = TorchContext(str(tmp_path))
     _load(t, texpr, ttypes, x, rpb=1024)
     cached = CacheManager.instance().vector_columns._d
-    sets = [(v, v) for v in q[:8]]
+    sets = [(v, v) for v in q]       # two chunks: approximate runs flash
     try:
         a, b = _prepared(t, "l2_distance"), _prepared(t, "l2_distance")
         a.execute_batch_block(sets, exact=True)
@@ -250,3 +250,70 @@ def test_port_reads_jax_data_root(tmp_path):
         _same_rows(t.sql(sql).rows(), want)
     finally:
         t.close()
+
+
+@pytest.mark.parametrize("fn", ["l2_distance", "cosine_distance"])
+def test_execute_batch_block_one_chunk_approx_is_exact(ctxs, fn, monkeypatch):
+    """A batch of one 256-query chunk runs the exact program in both modes,
+    as the reference's ``_topk`` does: JAX's rows and scores, no flash
+    scan."""
+    j, t, q = ctxs
+    sets = [(v, v) for v in q[:200]]
+    calls = []
+    real = tflash.flash_group_minima
+    monkeypatch.setattr(tflash, "flash_group_minima",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = _prepared(t, fn).execute_batch_block(sets, exact=False).rows()
+    assert calls == []
+    want = _prepared(j, fn).execute_batch_block(sets, exact=False).rows()
+    assert len(got) == 200 * 10
+    _same_rows(got, want)
+
+
+def _text_table(ctx, expr_mod, types_mod, n=600, seed=5):
+    words = np.array(["weather", "news", "google", "maps", "cat", "videos",
+                      "python", "flights", "hotels", "music"])
+    rng = np.random.default_rng(seed)
+    texts = [" ".join(words[rng.integers(0, len(words), rng.integers(2, 6))])
+             for _ in range(n)]
+    ctx.sql("CREATE TABLE mt (id BIGINT, body VARCHAR)")
+    ctx.sql("CREATE INVERTED INDEX mt_i ON mt(body)")
+    ctx.insert_block("mt", expr_mod.DataBlock(
+        ["id", "body"],
+        [expr_mod.Column.from_numpy(np.arange(n, dtype=np.int64)),
+         expr_mod.Column.from_pylist(texts, types_mod.String)]))
+
+
+def test_prepared_match_matches_jax(tmp_path, monkeypatch):
+    """A prepared BM25 ``match()`` statement: JAX serves it from its device
+    scorers (the size gate lowered to 0), the port declines to the generic
+    SQL path, which scores on the host; the same rows and scores."""
+    from databend_tpu.service.prepared import _MatchServer as JaxMatch
+    monkeypatch.setattr(JaxMatch, "DEVICE_MIN_DOCS", 0)
+    j = JaxContext(str(tmp_path / "jax"))
+    t = TorchContext(str(tmp_path / "torch"))
+    try:
+        _text_table(j, jexpr, jtypes)
+        _text_table(t, texpr, ttypes)
+        sql = ("SELECT id, score() FROM mt WHERE match(body, ?) "
+               "ORDER BY score() DESC LIMIT 7")
+        jp, tp = j.prepare(sql), t.prepare(sql)
+        assert tp._match is not None and not tp._match.refresh()
+        texts = ["weather news", "python", "cat videos maps"]
+        for g, w in zip(tp.execute_batch(texts), jp.execute_batch(texts)):
+            _same_rows(g.rows(), w.rows())
+        _same_rows(tp.execute("hotels").rows(), jp.execute("hotels").rows())
+    finally:
+        j.close()
+        t.close()
+
+
+def test_multi_card_host_answers_on_one(ctxs, monkeypatch):
+    """With several cards visible the port still answers a device-path KNN
+    query (the mesh-sharded prune is not ported), with JAX's rows."""
+    import torch
+    j, t, q = ctxs
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    t.sql("SET vector_host_scan_max_rows = 0")
+    sql = f"SELECT id FROM t ORDER BY l2_distance(emb, {_lit(q[11])}) LIMIT 10"
+    assert t.sql(sql).rows() == j.sql(sql).rows()
