@@ -1,16 +1,19 @@
 """Drive the port's exact-KNN serving path once on one CUDA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--diagnose]
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, power limit, torch and CUDA versions;
   2. build the hand-written kernels from databend_tpu_torch/csrc/;
-  3. each kernel against its plain PyTorch version at the serving shapes
-     (1M x 128 corpus padded to the flash tile, B in {256, 1024}, l2 and ip,
-     with pad rows), timed with CUDA events beside its bound (one read of
-     its inputs and one write of its output at 3.35 TB/s, or its bf16
-     FLOPs at 989 TFLOP/s, whichever is larger); then at wide embeddings
-     (D in {400, 768, 1536}, shared memory does not grow with D);
+  3. each kernel against its plain PyTorch version (atol FLASH_TOL * max
+     |score|, the same +inf pattern on pad rows), timed with CUDA events
+     beside its bound (one read of its inputs and one write of its output at
+     3.35 TB/s, or its bf16 FLOPs at 989 TFLOP/s, whichever is larger): at
+     the serving shapes (1M x 128 corpus padded to the flash tile, l2 and
+     ip, B = 256 as the server launches it, B = 1024, and B = 300 with a
+     partial last query block), at wide embeddings (D in {400, 768, 1536}),
+     and on a 262,144-row corpus with tile = 4096, tile = 128 (one step per
+     tile) and D = 48; ptxas must report no spill;
   4. the main path: SessionContext, CREATE TABLE / VECTOR INDEX, insert of
      1,000,000 SIFT1M-shaped rows (128-d integer values in [0, 255], seed 7),
      a literal KNN query, execute_batch (B=256), execute_batch_block
@@ -20,6 +23,10 @@ Phases (any failure exits non-zero and prints no result line):
   5. with --profile, after the launch counts are read: torch.profiler over
      3 batches of each execute_batch_block mode (whole call, _topk, device
      busy, the biggest device items);
+     with --diagnose, after the kernel phase: two timing-only variants of
+     the kernel source (one without the wgmma, one without the fold into
+     the minima; their results are wrong and the port never loads them)
+     beside the kernel, to show which part holds it;
   6. [cluster]: CREATE TABLE ... CLUSTER BY (emb) and an insert of 262,144
      SIFT-shaped rows (the reference's batch of 64 clusters): k-means runs
      on the card, its cluster runs cover every row once, and a KNN query on
@@ -128,78 +135,159 @@ def flash_bound(q, xb, nb, tile=16384, lanes=128):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def hold_flash_kernel(card, metric, q, xb, nb, tile=16384):
+    """One launch of flash_group_minima against its plain version on the
+    same tensors (FLASH_TOL, same +inf pattern; the corpus ends in pad rows
+    with +inf norms), then both timed beside the bound. Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    from databend_tpu_torch.ops.flash_topk import (
+        _flash_group_minima_plain, flash_group_minima)
+    b, d = q.shape
+    what = f"{metric} B={b} N={xb.shape[0]} D={d} tile={tile}"
+    check(bool(torch.isinf(nb[-1])) and not bool(xb[-1].any()),
+          f"{what}: the corpus needs pad rows with +inf norms")
+    got = flash_group_minima(q, xb, nb, metric, tile=tile)
+    torch.cuda.synchronize()
+    want = _flash_group_minima_plain(q, xb, nb, metric, tile=tile)
+    fin = torch.isfinite(want)
+    check(torch.equal(torch.isfinite(got), fin), f"{what}: inf pattern differs")
+    err = (got[fin] - want[fin]).abs().max().item()
+    scale = want[fin].abs().max().item()
+    check(err <= FLASH_TOL * scale,
+          f"kernel vs plain {what}: {err} > {FLASH_TOL} * {scale}")
+    del got, want, fin
+    ms = cuda_ms(lambda: flash_group_minima(q, xb, nb, metric, tile=tile))
+    plain_ms = cuda_ms(
+        lambda: _flash_group_minima_plain(q, xb, nb, metric, tile=tile))
+    bound_ms, bound_by = flash_bound(q, xb, nb, tile)
+    print(f"[kernel] flash_group_minima {what}: max_abs_err {err} (scale "
+          f"{scale}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.0f}% reached) "
+          f"[{card}]")
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
 def phase_kernels(card):
     from databend_tpu_torch.ops import _cuda
-    from databend_tpu_torch.ops.flash_topk import (
-        _flash_group_minima_plain, flash_group_minima, pad_for_flash)
+    from databend_tpu_torch.ops.flash_topk import pad_for_flash
     t0 = time.perf_counter()
     built = _cuda.build("flash_group_minima")
     print(f"[build] flash_group_minima.cu: nvcc {built['seconds']:.2f} s "
           f"(phase {time.perf_counter() - t0:.2f} s)")
     print(built["log"].strip())
+    spills = [ln for ln in built["log"].splitlines() if "spill" in ln]
+    check(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                         for ln in spills), f"ptxas reports spills: {spills}")
+    check("C7518" not in built["log"], "ptxas serialised the wgmma")
     g = torch.Generator(device="cuda").manual_seed(SEED)
+    results = {}
+
+    # the serving shapes: SIFT-valued rows, 1M x 128 padded to the tile; the
+    # chunk the server launches (B = 256), a whole batch (B = 1024) and a
+    # ragged batch (B = 300: three query blocks, the last partial)
     x = torch.randint(0, 256, (N_ROWS, DIM), generator=g, device="cuda",
                       dtype=torch.int32).float()
-    results = {}
-    for metric in ("l2", "ip"):
+    for metric, batches in (("l2", (256, 1024, 300)), ("ip", (256, 1024))):
         norms = (x * x).sum(1) if metric == "l2" \
             else torch.zeros(N_ROWS, device="cuda")
         xb, nb, _ = pad_for_flash(x.to(torch.bfloat16), norms, 16384)
-        check(xb.shape[0] > N_ROWS and bool(torch.isinf(nb[N_ROWS:]).all()),
-              "the corpus needs pad rows with +inf norms")
-        for b in (256, 1024):
+        for b in batches:
             q = x[torch.randint(0, N_ROWS, (b,), generator=g, device="cuda")] \
                 + torch.randn(b, DIM, generator=g, device="cuda")
-            got = flash_group_minima(q, xb, nb, metric)
-            torch.cuda.synchronize()
-            want = _flash_group_minima_plain(q, xb, nb, metric)
-            fin = torch.isfinite(want)
-            check(torch.equal(torch.isfinite(got), fin), "inf pattern differs")
-            err = (got[fin] - want[fin]).abs().max().item()
-            scale = want[fin].abs().max().item()
-            check(err <= FLASH_TOL * scale,
-                  f"kernel vs plain {metric} B={b}: {err} > {FLASH_TOL} * {scale}")
-            ms = cuda_ms(lambda: flash_group_minima(q, xb, nb, metric))
-            plain_ms = cuda_ms(lambda: _flash_group_minima_plain(q, xb, nb, metric))
-            bound_ms, bound_by = flash_bound(q, xb, nb)
-            results[(metric, b, DIM)] = (err, ms, plain_ms, bound_ms, bound_by)
-            print(f"[kernel] flash_group_minima {metric} B={b} N={xb.shape[0]} "
-                  f"D={DIM}: max_abs_err {err} (scale {scale}), kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
-            del q, got, want
-        del xb, nb
+            results[(metric, b, DIM)] = hold_flash_kernel(card, metric, q, xb, nb)
+        del xb, nb, norms
         torch.cuda.empty_cache()
     del x
-    # wide embeddings, a partial 128-column slice (D = 400) and a partial
-    # 64-query block (B = 100); Gaussian rows, with pad rows
+
+    # Gaussian rows from here on. Wide embeddings: a last box of 16 valid
+    # columns (D = 400) under a partial query block (B = 100), D = 768, 1536
     for metric, b, d in (("l2", 100, 400), ("l2", 256, 768), ("ip", 256, 1536)):
-        n = N_ROWS
+        x = torch.randn(N_ROWS, d, generator=g, device="cuda")
+        norms = (x * x).sum(1) if metric == "l2" \
+            else torch.zeros(N_ROWS, device="cuda")
+        xb, nb, _ = pad_for_flash(x.to(torch.bfloat16), norms, 16384)
+        del x, norms
+        q = torch.randn(b, d, generator=g, device="cuda")
+        results[(metric, b, d)] = hold_flash_kernel(card, metric, q, xb, nb)
+        del xb, nb, q
+        torch.cuda.empty_cache()
+
+    # small tiles on a 262,144-row corpus: 32 steps per tile, one step per
+    # tile, and a single box of 48 valid columns
+    for metric, b, d, tile in (("l2", 300, DIM, 4096), ("l2", 300, DIM, 128),
+                               ("ip", 100, 48, 4096)):
+        n = CLUSTER_ROWS - 1000
         x = torch.randn(n, d, generator=g, device="cuda")
         norms = (x * x).sum(1) if metric == "l2" \
             else torch.zeros(n, device="cuda")
-        xb, nb, _ = pad_for_flash(x.to(torch.bfloat16), norms, 16384)
+        xb, nb, _ = pad_for_flash(x.to(torch.bfloat16), norms, tile)
         q = torch.randn(b, d, generator=g, device="cuda")
-        got = flash_group_minima(q, xb, nb, metric)
-        torch.cuda.synchronize()
-        want = _flash_group_minima_plain(q, xb, nb, metric)
-        fin = torch.isfinite(want)
-        check(torch.equal(torch.isfinite(got), fin), f"inf pattern differs, D={d}")
-        err = (got[fin] - want[fin]).abs().max().item()
-        scale = want[fin].abs().max().item()
-        check(err <= FLASH_TOL * scale,
-              f"kernel vs plain {metric} B={b} D={d}: {err} > {FLASH_TOL} * {scale}")
-        ms = cuda_ms(lambda: flash_group_minima(q, xb, nb, metric))
-        plain_ms = cuda_ms(lambda: _flash_group_minima_plain(q, xb, nb, metric))
-        bound_ms, bound_by = flash_bound(q, xb, nb)
-        results[(metric, b, d)] = (err, ms, plain_ms, bound_ms, bound_by)
-        print(f"[kernel] flash_group_minima {metric} B={b} N={xb.shape[0]} "
-              f"D={d}: max_abs_err {err} (scale {scale}), kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
-        del x, xb, nb, q, got, want
+        results[(metric, b, d, tile)] = hold_flash_kernel(card, metric, q, xb,
+                                                          nb, tile)
+        del x, norms, xb, nb, q
     torch.cuda.empty_cache()
     return results
+
+
+# --diagnose: text patches of csrc/flash_group_minima.cu, each (old, new)
+# occurring once. Timing only: the variants compute wrong minima.
+DIAGNOSE_VARIANTS = {
+    "loads + fold, no wgmma": [
+        ("wgmma_m64n128k16(acc, qa[4 * kb + k], db + 2 * k, (kb | k) != 0);",
+         "if (B < 0) wgmma_m64n128k16(acc, qa[4 * kb + k], db + 2 * k, "
+         "(kb | k) != 0);"),
+        ("float acc[64], run[64];", "float acc[64] = {}, run[64];")],
+    "loads + wgmma, no fold": [
+        ("for (int j = 0; j < 16; ++j) {\n"
+         "          run[4 * j + 0] = fminf(",
+         "for (int j = 0; j < 1; ++j) {\n"
+         "          run[4 * j + 0] = fminf(")],
+}
+
+
+def diagnose_flash(card):
+    """Time the kernel beside its two timing-only variants at D = 128 on the
+    1M-row corpus, in turns on this card: B = 128 (one query block a tile:
+    every tile comes from device memory), 256 and 1024."""
+    import ctypes
+    from databend_tpu_torch.ops import _cuda, flash_topk as ft
+    with open(os.path.join(_cuda.CSRC_DIR, "flash_group_minima.cu")) as f:
+        source = f.read()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(N_ROWS, DIM, generator=g, device="cuda")
+    xb, nb, _ = ft.pad_for_flash(x.to(torch.bfloat16), (x * x).sum(1), 16384)
+    del x
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {"kernel": ft._launcher()}
+        for i, (name, patches) in enumerate(DIAGNOSE_VARIANTS.items()):
+            text = source
+            for old, new in patches:
+                check(text.count(old) == 1, f"--diagnose: {old!r} not once")
+                text = text.replace(old, new)
+            src = os.path.join(tmp, f"variant{i}.cu")
+            with open(src, "w") as f:
+                f.write(text)
+            subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o",
+                            src[:-3] + ".so", src], check=True,
+                           capture_output=True, timeout=300)
+            libs[name] = ctypes.CDLL(src[:-3] + ".so")
+            libs[name].flash_group_minima_launch.argtypes = ft._LAUNCH_ARGTYPES
+        stream = torch.cuda.current_stream().cuda_stream
+        for b in (128, 256, 1024):
+            qn = torch.randn(b, DIM, generator=g, device="cuda").bfloat16()
+            out = torch.empty((xb.shape[0] // 16384, b, 128), device="cuda")
+
+            def launch(lib):
+                err = lib.flash_group_minima_launch(
+                    qn.data_ptr(), xb.data_ptr(), nb.data_ptr(),
+                    out.data_ptr(), b, xb.shape[0], DIM, 16384, stream)
+                check(err == 0, f"--diagnose: launch failed ({err})")
+
+            for turn in range(2):
+                times = ", ".join(
+                    f"{name} {cuda_ms(lambda: launch(lib), 10):.4f} ms"
+                    for name, lib in libs.items())
+                print(f"[diagnose] l2 B={b} N={xb.shape[0]} D={DIM} turn "
+                      f"{turn}: {times} [{card}]")
 
 
 def phase_main_path(card, profile):
@@ -501,6 +589,8 @@ def main():
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     kern = phase_kernels(card)
+    if "--diagnose" in sys.argv[1:]:
+        diagnose_flash(card)
     launches = phase_main_path(card, "--profile" in sys.argv[1:])
     check(launches > 0, "the main path launched flash_group_minima no time")
     phase_cluster(card)

@@ -21,7 +21,8 @@ PORT_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PORT_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PORT_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lcuda")   # cuTensorMapEncodeTiled (TMA tensor maps)
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -41,14 +42,15 @@ def _nvcc() -> str:
 def build(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` unless its build exists; returns
     ``{"path", "seconds", "log"}`` (``log`` holds ``-Xptxas -v`` output,
-    empty when the library was already built)."""
+    kept beside the library for later calls; ``seconds`` is 0 then)."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
                                 ).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(out):
-        return {"path": out, "seconds": 0.0, "log": ""}
+        with open(out + ".log") as f:
+            return {"path": out, "seconds": 0.0, "log": f.read()}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
@@ -56,9 +58,11 @@ def build(name: str) -> dict:
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    with open(out + ".log", "w") as f:
+        f.write(log)
     os.replace(tmp, out)
-    return {"path": out, "seconds": time.perf_counter() - t0,
-            "log": proc.stdout + proc.stderr}
+    return {"path": out, "seconds": time.perf_counter() - t0, "log": log}
 
 
 def load(name: str) -> ctypes.CDLL:

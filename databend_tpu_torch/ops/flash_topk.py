@@ -10,9 +10,10 @@ re-scores those exactly in f32. A true top-k row is lost only if its group
 has ``shortlist`` better groups.
 
 On a CUDA tensor ``flash_group_minima`` launches the hand-written Hopper
-kernel ``csrc/flash_group_minima.cu`` (or raises); on a CPU tensor it runs
-the plain PyTorch version ``_flash_group_minima_plain``, which has the same
-contract and group membership.
+kernel ``csrc/flash_group_minima.cu`` (a TMA ring feeding ``wgmma``, work
+items of 128 queries on a persistent grid) or raises; on a CPU tensor it
+runs the plain PyTorch version ``_flash_group_minima_plain``, which has the
+same contract and group membership.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from . import _cuda
 from .distance import _dot
 
 _KERNEL_LANES = 128   # the CUDA kernel's L
+_TMA_ALIGN = 16       # bytes: base address of a tensor map or bulk copy
 _METRIC_SCALE = {"l2": 2.0, "ip": 1.0}
 
 
@@ -82,21 +84,22 @@ def flash_group_minima(q: torch.Tensor, x_bf16: torch.Tensor,
         raise ValueError(f"flash_group_minima: no kernel for {q.device}")
     b, d = q.shape
     n = x_bf16.shape[0]
-    if buckets != _KERNEL_LANES or d % 16:
+    if buckets != _KERNEL_LANES or d % 16 or b < 1:
         raise ValueError(f"flash_group_minima: the CUDA kernel needs "
-                         f"buckets == {_KERNEL_LANES} and D % 16 == 0 "
-                         f"(buckets={buckets}, D={d})")
-    if not (q.is_contiguous() and x_bf16.is_contiguous()
-            and norms.is_contiguous()):
-        raise ValueError("flash_group_minima: inputs must be contiguous")
+                         f"buckets == {_KERNEL_LANES}, D % 16 == 0 and "
+                         f"B >= 1 (buckets={buckets}, D={d}, B={b})")
+    # the kernel's A operand: bf16(-c * q), which is -c * bf16(q) for c = 1, 2
+    qn = torch.empty((b, d), dtype=torch.bfloat16, device=q.device)
+    torch.mul(q, -_METRIC_SCALE[metric], out=qn)
+    _check_tma_operands(qn=qn, x_bf16=x_bf16, norms=norms)
     lib = _launcher()
     out = torch.empty((n // tile, b, buckets), dtype=torch.float32,
                       device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_group_minima_launch(
-            q.data_ptr(), x_bf16.data_ptr(), norms.data_ptr(), out.data_ptr(),
-            b, n, d, tile, _METRIC_SCALE[metric], stream)
+            qn.data_ptr(), x_bf16.data_ptr(), norms.data_ptr(), out.data_ptr(),
+            b, n, d, tile, stream)
     if err:
         msg = lib.flash_group_minima_error_string(err).decode()
         raise RuntimeError(f"flash_group_minima launch failed: {msg} ({err})")
@@ -107,14 +110,28 @@ def flash_group_minima(q: torch.Tensor, x_bf16: torch.Tensor,
 flash_group_minima.launches = 0
 
 
+def _check_tma_operands(**tensors: torch.Tensor) -> None:
+    """The kernel reads its operands with TMA (tensor maps and bulk copies):
+    each must be contiguous and start at a multiple of 16 bytes."""
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"flash_group_minima: {name} must be contiguous")
+        if t.data_ptr() % _TMA_ALIGN:
+            raise ValueError(f"flash_group_minima: {name} must start at a "
+                             f"multiple of {_TMA_ALIGN} bytes")
+
+
+# the C interface of csrc/flash_group_minima.cu
+_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]     # qn, x, norms, out; B, N, D, tile; stream
+
+
 @functools.cache
 def _launcher() -> ctypes.CDLL:
     """The kernel's library, built at first use, with its C signatures."""
     lib = _cuda.load("flash_group_minima")
-    fn = lib.flash_group_minima_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.flash_group_minima_launch.argtypes = _LAUNCH_ARGTYPES
+    lib.flash_group_minima_launch.restype = ctypes.c_int
     lib.flash_group_minima_error_string.argtypes = [ctypes.c_int]
     lib.flash_group_minima_error_string.restype = ctypes.c_char_p
     return lib

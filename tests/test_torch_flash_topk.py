@@ -35,20 +35,38 @@ def _bf16(x):
     return torch.from_numpy(x).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_group_minima_plain_matches_pallas(metric):
-    q, x, norms = _mk()
+# (metric, B, D, tile, N): the first two are the original small cases; the
+# rest are the ragged shapes the CUDA kernel takes (a partial block of 128
+# queries, three blocks with the last partial, a single box of 48 columns, a
+# last box of 16 valid columns, one step per tile, 32 steps per tile), so the
+# yardstick chip_smoke.py holds the kernel against is known right there.
+# Every corpus is padded to its tile: pad rows carry +inf norms.
+_MINIMA_CASES = [
+    ("l2", 8, 32, 256, 1000), ("ip", 8, 32, 256, 1000),
+    ("l2", 100, 128, 4096, 6000), ("ip", 100, 128, 4096, 6000),
+    ("l2", 300, 128, 128, 1000), ("ip", 300, 128, 128, 1000),
+    ("l2", 100, 48, 4096, 5000), ("ip", 300, 48, 128, 700),
+    ("l2", 100, 400, 128, 900), ("ip", 300, 400, 4096, 4500),
+]
+
+
+@pytest.mark.parametrize("metric,b,d,tile,n", _MINIMA_CASES)
+def test_group_minima_plain_matches_pallas(metric, b, d, tile, n):
+    q, x, norms = _mk(n=n, d=d, b=b)
     if metric == "ip":
         norms = np.zeros_like(norms)
-    xp, npad, _ = jf.pad_for_flash(x, norms, 256)      # pad rows: +inf norms
+    xp, npad, _ = jf.pad_for_flash(x, norms, tile)     # pad rows: +inf norms
+    assert xp.shape[0] > n and xp.shape[0] % tile == 0
     want = np.asarray(jf.flash_group_minima(
-        q, jnp.asarray(xp, jnp.bfloat16), npad, metric, tile=256,
+        q, jnp.asarray(xp, jnp.bfloat16), npad, metric, tile=tile,
         buckets=128, interpret=True))
     got = tf.flash_group_minima(torch.from_numpy(q), _bf16(xp),
-                                torch.from_numpy(npad), metric, tile=256,
+                                torch.from_numpy(npad), metric, tile=tile,
                                 buckets=128).numpy()
-    assert got.shape == want.shape == (4, 8, 128)
+    assert got.shape == want.shape == (xp.shape[0] // tile, b, 128)
     finite = np.isfinite(want)
+    # a lane is +inf only where every row of its group is a pad
+    assert finite.all() == (tile != 128)
     np.testing.assert_array_equal(np.isfinite(got), finite)
     np.testing.assert_allclose(got[finite], want[finite], rtol=0,
                                atol=1e-4 * np.abs(want[finite]).max())
@@ -147,3 +165,60 @@ def test_flash_group_minima_has_no_fallback_off_cpu():
     tf.flash_group_minima(torch.from_numpy(q), _bf16(x),
                           torch.from_numpy(norms), "l2", tile=256)
     assert tf.flash_group_minima.launches == before   # plain runs count 0
+
+
+def _misaligned(t):
+    """The same values in a contiguous tensor that starts one element (2 or
+    4 bytes) past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("bad", ["qn", "x_bf16", "norms"])
+@pytest.mark.parametrize("how", ["misaligned", "strided"])
+def test_tma_operand_check(bad, how):
+    """The kernel reads its operands with TMA: the wrapper's check raises
+    on an operand that is not contiguous or not 16-byte aligned."""
+    q, x, norms = _mk(seed=7, n=512)
+    good = {"qn": _bf16(q), "x_bf16": _bf16(x), "norms": torch.from_numpy(norms)}
+    tf._check_tma_operands(**good)                     # torch allocations pass
+    t = good[bad]
+    if how == "misaligned":
+        good[bad] = _misaligned(t)
+    else:
+        good[bad] = torch.cat([t, t], dim=-1)[..., ::2]
+        assert not good[bad].is_contiguous()
+    with pytest.raises(ValueError, match=bad):
+        tf._check_tma_operands(**good)
+
+
+def test_cuda_source_exports_what_the_wrapper_binds():
+    """Nothing compiles on the CPU: read the kernel's source and check that
+    its extern "C" block exports exactly the two functions `_launcher`
+    binds, with as many arguments as the ctypes signatures."""
+    import ctypes
+    import os
+    import re
+    from databend_tpu_torch.ops import _cuda
+    with open(os.path.join(_cuda.CSRC_DIR, "flash_group_minima.cu")) as f:
+        src = f.read()
+    assert src.count('extern "C" {') == 1
+    block = re.sub(r"//[^\n]*", "", src[src.index('extern "C" {'):])
+    exported = {name: [a for a in args.split(",") if a.strip()]
+                for name, args in re.findall(      # definitions at column 0
+                    r"^\w[^\n(]*?\b(\w+)\s*\(([^)]*)\)\s*\{", block, re.M)}
+    assert set(exported) == {"flash_group_minima_launch",
+                             "flash_group_minima_error_string"}
+    args = exported["flash_group_minima_launch"]
+    assert len(args) == len(tf._LAUNCH_ARGTYPES) == 9
+    for arg, ctype in zip(args, tf._LAUNCH_ARGTYPES):
+        assert ("*" in arg) == (ctype is ctypes.c_void_p), arg
+    assert len(exported["flash_group_minima_error_string"]) == 1
+    # one design: wgmma fed by TMA, no trace of the wmma kernel or a switch
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier"):
+        assert needle in src
+    for needle in ("nvcuda", "wmma::", "getenv"):
+        assert needle not in src
