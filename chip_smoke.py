@@ -1,19 +1,30 @@
-"""Drive the port's exact-KNN serving path once on one CUDA card.
+"""Drive the port's serving paths once on one CUDA card: exact and
+approximate KNN, and BM25 text and hybrid text+vector serving.
 
     python3 chip_smoke.py [--profile] [--diagnose]
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, power limit, torch and CUDA versions;
-  2. build the hand-written kernels from databend_tpu_torch/csrc/;
-  3. each kernel against its plain PyTorch version (atol FLASH_TOL * max
-     |score|, the same +inf pattern on pad rows), timed with CUDA events
+  2. build the hand-written kernels from databend_tpu_torch/csrc/, one nvcc
+     per source, all started together; ptxas must report no spill;
+  3. each kernel against its plain PyTorch version, timed with CUDA events
      beside its bound (one read of its inputs and one write of its output at
-     3.35 TB/s, or its bf16 FLOPs at 989 TFLOP/s, whichever is larger): at
-     the serving shapes (1M x 128 corpus padded to the flash tile, l2 and
-     ip, B = 256 as the server launches it, B = 1024, and B = 300 with a
-     partial last query block), at wide embeddings (D in {400, 768, 1536}),
-     and on a 262,144-row corpus with tile = 4096, tile = 128 (one step per
-     tile) and D = 48; ptxas must report no spill;
+     3.35 TB/s, or its operations at the card's peak for their type,
+     whichever is larger):
+     flash_group_minima (atol FLASH_TOL * max |score|, the same +inf pattern
+     on pad rows; bf16 FLOPs at 989 TFLOP/s): at the serving shapes (1M x 128
+     corpus padded to the flash tile, l2 and ip, B = 256 as the server
+     launches it, B = 1024, and B = 300 with a partial last query block), at
+     wide embeddings (D in {400, 768, 1536}), and on a 262,144-row corpus
+     with tile = 4096, tile = 128 (one step per tile; 300 more launches must
+     repeat the first bit for bit) and D = 48;
+     impact_bm25_scores (rtol IMPACT_RTOL on finite scores, the same -inf
+     pattern; one compare-select per real doc slot and real query term at
+     132 SMs x 64 int32 lanes x 1.98 GHz): on a
+     block of 262,144 docs at (L = 8, b = 128, m = 4) OR and AND, the same
+     fused with a D = 128 distance term (cosine and l2), (L = 8, b = 8),
+     (L = 64, b = 128, m = 8), (L = 512, b = 8, m = 4), b = 1, and a block
+     that ends in 1,000 pad docs;
   4. the main path: SessionContext, CREATE TABLE / VECTOR INDEX, insert of
      1,000,000 SIFT1M-shaped rows (128-d integer values in [0, 255], seed 7),
      a literal KNN query, execute_batch (B=256), execute_batch_block
@@ -22,19 +33,32 @@ Phases (any failure exits non-zero and prints no result line):
      a numpy ground truth on 16 queries, launch counts of every kernel;
   5. with --profile, after the launch counts are read: torch.profiler over
      3 batches of each execute_batch_block mode (whole call, _topk, device
-     busy, the biggest device items);
+     busy, the biggest device items), and in the [match] phase over 3
+     batches of the text and the fused statement at B = 128;
      with --diagnose, after the kernel phase: two timing-only variants of
-     the kernel source (one without the wgmma, one without the fold into
-     the minima; their results are wrong and the port never loads them)
-     beside the kernel, to show which part holds it;
-  6. [cluster]: CREATE TABLE ... CLUSTER BY (emb) and an insert of 262,144
+     the flash kernel source (one without the wgmma, one without the fold
+     into the minima; their results are wrong and the port never loads them)
+     beside the kernel, to show which part holds it, and a variant without
+     the fence before a stage's release, to show the race the fence closes
+     (launches of 2,000 at tile = 128 that leave the plain answer);
+  6. [match]: the hybrid deployment of benchmarks/hybrid_serving_bench.py:
+     1,000,000 rows in 4 blocks of 262,144 (id, cat, body of 2-4 words from
+     a 16-word list, unit-norm 128-d embeddings, seed 17) under an inverted
+     index. A prepared ``match()`` statement single, at B = 8 and B = 128,
+     and the fused ``0.04 * score() - cosine_distance(emb, ?)`` statement at
+     B = 128: each checked against the generic literal path (rows, scores)
+     and, for the text statement, a numpy BM25 computed from the texts,
+     then timed (median of 5 batches of fresh texts after a warm-up); the
+     scoring kernel must have been launched once per block and batch;
+  7. [cluster]: CREATE TABLE ... CLUSTER BY (emb) and an insert of 262,144
      SIFT-shaped rows (the reference's batch of 64 clusters): k-means runs
      on the card, its cluster runs cover every row once, and a KNN query on
      the clustered table reaches recall@10 >= 0.99;
-  7. [suites]: ``python -m databend_tpu_torch sqllogic tests/suites/index``
+  8. [suites]: ``python -m databend_tpu_torch sqllogic tests/suites/index``
      on the card exits 0;
-  8. stand-alone: every loaded port module comes from the port's own
-     directory, and no jax or databend_tpu module was loaded.
+  9. stand-alone: every loaded port module (the device BM25 module among
+     them) comes from the port's own directory, and no jax or databend_tpu
+     module was loaded.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -58,6 +82,14 @@ FLASH_TOL = 1e-3       # kernel vs plain: atol FLASH_TOL * max|score| (f32 sums 
 CLUSTER_ROWS = 262_144  # the reference's k-means batch (index/kmeans.py)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12    # dense bf16 tensor-core peak, same source
+INT32_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x int32 lanes x boost clock
+IMPACT_RTOL = 1e-6     # kernel vs plain: the same f32 operations in the same order
+BLOCK_ROWS = 262_144   # rows per block of the [match] deployment
+MATCH_ROWS = 1_000_000
+MATCH_SEED = 17
+MATCH_WORDS = ["weather", "news", "google", "maps", "cat", "videos", "python",
+               "flights", "hotels", "music", "games", "sports", "stock",
+               "market", "recipe", "travel"]
 
 
 def check(cond, msg):
@@ -135,10 +167,12 @@ def flash_bound(q, xb, nb, tile=16384, lanes=128):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def hold_flash_kernel(card, metric, q, xb, nb, tile=16384):
+def hold_flash_kernel(card, metric, q, xb, nb, tile=16384, repeats=0):
     """One launch of flash_group_minima against its plain version on the
     same tensors (FLASH_TOL, same +inf pattern; the corpus ends in pad rows
-    with +inf norms), then both timed beside the bound. Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    with +inf norms), ``repeats`` more launches that must give the same
+    bits, then both timed beside the bound.
+    Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
     from databend_tpu_torch.ops.flash_topk import (
         _flash_group_minima_plain, flash_group_minima)
     b, d = q.shape
@@ -154,6 +188,12 @@ def hold_flash_kernel(card, metric, q, xb, nb, tile=16384):
     scale = want[fin].abs().max().item()
     check(err <= FLASH_TOL * scale,
           f"kernel vs plain {what}: {err} > {FLASH_TOL} * {scale}")
+    # the kernel is deterministic: a race between its producer and its
+    # consumers shows as a launch that differs from the first
+    for i in range(repeats):
+        again = flash_group_minima(q, xb, nb, metric, tile=tile)
+        check(torch.equal(again, got), f"{what}: launch {i + 2} differs from "
+                                       "the first")
     del got, want, fin
     ms = cuda_ms(lambda: flash_group_minima(q, xb, nb, metric, tile=tile))
     plain_ms = cuda_ms(
@@ -166,18 +206,29 @@ def hold_flash_kernel(card, metric, q, xb, nb, tile=16384):
     return err, ms, plain_ms, bound_ms, bound_by
 
 
-def phase_kernels(card):
+def build_kernels():
+    """Compile every kernel source, all at once (one nvcc each); print what
+    ptxas says and fail on any spill."""
+    from concurrent.futures import ThreadPoolExecutor
     from databend_tpu_torch.ops import _cuda
-    from databend_tpu_torch.ops.flash_topk import pad_for_flash
+    names = ("flash_group_minima", "impact_bm25_scores")
     t0 = time.perf_counter()
-    built = _cuda.build("flash_group_minima")
-    print(f"[build] flash_group_minima.cu: nvcc {built['seconds']:.2f} s "
-          f"(phase {time.perf_counter() - t0:.2f} s)")
-    print(built["log"].strip())
-    spills = [ln for ln in built["log"].splitlines() if "spill" in ln]
-    check(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
-                         for ln in spills), f"ptxas reports spills: {spills}")
-    check("C7518" not in built["log"], "ptxas serialised the wgmma")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(_cuda.build, names)))
+    for name, b in built.items():
+        print(f"[build] {name}.cu: nvcc {b['seconds']:.2f} s "
+              f"(phase {time.perf_counter() - t0:.2f} s)")
+        print(b["log"].strip())
+        spills = [ln for ln in b["log"].splitlines() if "spill" in ln]
+        check(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                             for ln in spills),
+              f"ptxas reports spills in {name}: {spills}")
+    check("C7518" not in built["flash_group_minima"]["log"],
+          "ptxas serialised the wgmma")
+
+
+def phase_kernels(card):
+    from databend_tpu_torch.ops.flash_topk import pad_for_flash
     g = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
 
@@ -221,15 +272,140 @@ def phase_kernels(card):
             else torch.zeros(n, device="cuda")
         xb, nb, _ = pad_for_flash(x.to(torch.bfloat16), norms, tile)
         q = torch.randn(b, d, generator=g, device="cuda")
-        results[(metric, b, d, tile)] = hold_flash_kernel(card, metric, q, xb,
-                                                          nb, tile)
+        # one step per tile is where a stage is handed back soonest: 6,123
+        # work items a launch, held to the same bits 300 times over
+        results[(metric, b, d, tile)] = hold_flash_kernel(
+            card, metric, q, xb, nb, tile, repeats=300 if tile == 128 else 0)
         del x, norms, xb, nb, q
     torch.cuda.empty_cache()
     return results
 
 
+def impact_operands(g, n_pad, n_docs, slots, b, m, and_mode, dim=0):
+    """A block's doc-major layout and a packed query batch, on the card, in
+    the scorer's contract: a term at most once per doc (an arithmetic
+    progression modulo a prime vocabulary), docs of L/4 to L/2 terms, pad
+    docs and pad slots -2; queries of m/2 distinct-group terms, then pad
+    terms (-1), packed by ``pack_query_terms``.
+    With ``dim`` a [b, n_pad] cosine-style distance term as well."""
+    vocab = {8: 17, 64: 131, 512: 1031}[slots]
+    dev = "cuda"
+
+    def rint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    ar = torch.arange(slots, device=dev, dtype=torch.int32)[None, :]
+    term_ids = (rint(0, vocab, (n_pad, 1)) + ar * rint(1, vocab, (n_pad, 1))) \
+        % vocab
+    real = ar < rint(slots // 4, slots // 2 + 1, (n_pad, 1))
+    real &= torch.arange(n_pad, device=dev)[:, None] < n_docs
+    term_ids = torch.where(real, term_ids, -2)
+    sat = torch.where(real, 0.5 + 1.5 * torch.rand(
+        (n_pad, slots), generator=g, device=dev), 0.0)
+    live = torch.arange(m, device=dev)[None, :].expand(b, m) < m // 2
+    qterms = torch.where(live, rint(0, vocab, (b, m)), -1)
+    idf = torch.where(live, 0.5 + 2.5 * torch.rand(
+        (b, m), generator=g, device=dev), 0.0)
+    qgroup = torch.where(live, torch.arange(
+        m, device=dev, dtype=torch.int32)[None, :].expand(b, m), -1)
+    need = torch.full((b,), float(m // 2 if and_mode else 1), device=dev)
+    dist = None
+    if dim:
+        emb = torch.nn.functional.normalize(torch.randn(
+            n_pad, dim, generator=g, device=dev), dim=1)
+        q = torch.nn.functional.normalize(torch.randn(
+            b, dim, generator=g, device=dev), dim=1)
+        dist = 1.0 - q @ emb.T
+    from databend_tpu_torch.ops.impact_bm25 import pack_query_terms
+    return (term_ids.contiguous(), sat,
+            pack_query_terms(qterms, idf, qgroup), need), dist
+
+
+def impact_bound(ops, dist):
+    """(ms, "bytes" or "operations"): one read of the layout, the query
+    operands and the distance term plus one write of the [b, n_pad] f32
+    scores at the memory rate, or one compare-select per (real doc slot, real
+    query term) of this run's data at the int32 instruction rate, whichever is
+    larger."""
+    term_ids, qpack = ops[0], ops[2]
+    n_pad = term_ids.shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in ops) \
+        + qpack.shape[0] * n_pad * 4 * (2 if dist is not None else 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    real_slots = int((term_ids >= 0).sum())
+    real_terms = int((qpack[..., 0] >= 0).sum())
+    t_ops = real_slots * real_terms / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hold_impact_kernel(card, what, ops, dist, w_s=1.0, w_d=0.0):
+    """One launch of impact_bm25_scores against its plain version on the
+    same tensors (IMPACT_RTOL on finite scores, the same -inf pattern), then
+    both timed beside the bound.
+    Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    from databend_tpu_torch.ops.impact_bm25 import (
+        _impact_bm25_scores_plain, impact_bm25_scores)
+    before = impact_bm25_scores.launches
+    got = impact_bm25_scores(*ops, dist=dist, w_s=w_s, w_d=w_d)
+    torch.cuda.synchronize()
+    check(impact_bm25_scores.launches == before + 1, f"{what}: no launch")
+    want = _impact_bm25_scores_plain(*ops, dist, w_s, w_d)
+    fin = torch.isfinite(want)
+    check(torch.equal(torch.isfinite(got), fin), f"{what}: -inf pattern differs")
+    check(bool(fin.any()) and not bool(fin.all()),
+          f"{what}: the shape needs both matched and unmatched docs")
+    check(bool((got[~fin] == -torch.inf).all()), f"{what}: masked cells not -inf")
+    err = (got[fin] - want[fin]).abs().max().item()
+    rel = ((got[fin] - want[fin]).abs() / want[fin].abs().clamp_min(1e-30)) \
+        .max().item()
+    check(rel <= IMPACT_RTOL, f"kernel vs plain {what}: rel err {rel}")
+    share = fin.float().mean().item()
+    del got, want, fin
+    ms = cuda_ms(lambda: impact_bm25_scores(*ops, dist=dist, w_s=w_s, w_d=w_d))
+    plain_ms = cuda_ms(
+        lambda: _impact_bm25_scores_plain(*ops, dist, w_s, w_d), reps=2)
+    bound_ms, bound_by = impact_bound(ops, dist)
+    print(f"[kernel] impact_bm25_scores {what}: max_abs_err {err} (max rel "
+          f"{rel}, {100 * share:.1f}% of cells matched), kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{100 * bound_ms / ms:.0f}% reached) [{card}]")
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+def phase_impact_kernels(card):
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    n = BLOCK_ROWS
+    results = {}
+    # (name, n_docs, L, b, m, AND?, fused metric or None)
+    shapes = [("OR", n, 8, 128, 4, False, None),
+              ("AND", n, 8, 128, 4, True, None),
+              ("fused cosine", n, 8, 128, 4, False, "cosine"),
+              ("fused l2", n, 8, 128, 4, False, "l2"),
+              ("OR", n, 8, 8, 4, False, None),
+              ("OR", n, 64, 128, 8, False, None),
+              ("AND", n, 512, 8, 4, True, None),
+              ("OR", n, 8, 1, 4, False, None),
+              ("OR ragged", n - 1000, 8, 128, 4, False, None)]
+    for name, n_docs, slots, b, m, and_mode, metric in shapes:
+        ops, dist = impact_operands(g, n, n_docs, slots, b, m, and_mode,
+                                    DIM if metric else 0)
+        w_s, w_d = 1.0, 0.0
+        if metric == "cosine":
+            w_s, w_d = 0.04, -1.0
+        elif metric == "l2":          # an ASC order: both weights negated
+            dist = torch.sqrt(2.0 * dist.clamp_min(0.0))
+            w_s, w_d = -0.04, 1.0
+        what = f"{name} n_pad={n} n_docs={n_docs} L={slots} b={b} m={m}"
+        results[(name, slots, b, m)] = hold_impact_kernel(
+            card, what, ops, dist, w_s, w_d)
+        del ops, dist
+        torch.cuda.empty_cache()
+    return results
+
+
 # --diagnose: text patches of csrc/flash_group_minima.cu, each (old, new)
-# occurring once. Timing only: the variants compute wrong minima.
+# occurring once. The first two are timing only: they compute wrong minima.
 DIAGNOSE_VARIANTS = {
     "loads + fold, no wgmma": [
         ("wgmma_m64n128k16(acc, qa[4 * kb + k], db + 2 * k, (kb | k) != 0);",
@@ -241,13 +417,19 @@ DIAGNOSE_VARIANTS = {
          "          run[4 * j + 0] = fminf(",
          "for (int j = 0; j < 1; ++j) {\n"
          "          run[4 * j + 0] = fminf(")],
+    # right but for a race: the stage's release may overtake the norms' loads
+    "no fence before the release": [
+        ("        __threadfence_block();\n", "")],
 }
+RACE_LAUNCHES = 2000
 
 
 def diagnose_flash(card):
-    """Time the kernel beside its two timing-only variants at D = 128 on the
-    1M-row corpus, in turns on this card: B = 128 (one query block a tile:
-    every tile comes from device memory), 256 and 1024."""
+    """Time the kernel beside its source variants at D = 128 on the 1M-row
+    corpus, in turns on this card: B = 128 (one query block a tile: every
+    tile comes from device memory), 256 and 1024. Then count, for the kernel
+    and for the variant without the fence, the launches at tile = 128 that
+    leave the plain version's answer (the kernel: none)."""
     import ctypes
     from databend_tpu_torch.ops import _cuda, flash_topk as ft
     with open(os.path.join(_cuda.CSRC_DIR, "flash_group_minima.cu")) as f:
@@ -288,6 +470,31 @@ def diagnose_flash(card):
                     for name, lib in libs.items())
                 print(f"[diagnose] l2 B={b} N={xb.shape[0]} D={DIM} turn "
                       f"{turn}: {times} [{card}]")
+
+        # the race the fence closes: one step per tile, 6,123 work items a
+        # launch; count the launches that leave the plain version's answer
+        del xb, nb
+        x = torch.randn(CLUSTER_ROWS - 1000, DIM, generator=g, device="cuda")
+        xb, nb, _ = ft.pad_for_flash(x.to(torch.bfloat16), (x * x).sum(1), 128)
+        q = torch.randn(300, DIM, generator=g, device="cuda")
+        want = ft._flash_group_minima_plain(q, xb, nb, "l2", tile=128)
+        fin = torch.isfinite(want)
+        tol = FLASH_TOL * want[fin].abs().max().item()
+        qn = (q * -2.0).to(torch.bfloat16)
+        out = torch.empty_like(want)
+        for name in ("kernel", "no fence before the release"):
+            bad = 0
+            for _ in range(RACE_LAUNCHES):
+                err = libs[name].flash_group_minima_launch(
+                    qn.data_ptr(), xb.data_ptr(), nb.data_ptr(),
+                    out.data_ptr(), 300, xb.shape[0], DIM, 128, stream)
+                check(err == 0, f"--diagnose: launch failed ({err})")
+                bad += int((torch.where(fin, out - want, 0.0).abs().max()
+                            > tol).item())
+            print(f"[diagnose] l2 B=300 N={xb.shape[0]} D={DIM} tile=128, "
+                  f"{name}: {bad} of {RACE_LAUNCHES} launches differ from "
+                  f"the plain version [{card}]")
+            check(name != "kernel" or bad == 0, "the kernel races")
 
 
 def phase_main_path(card, profile):
@@ -415,6 +622,217 @@ def run_queries(ctx, queries, gt, card, ft):
     check(r >= 0.99, f"one-chunk approximate batch: recall {r}")
 
 
+def bm25_oracle(words, n_words, text, k):
+    """Top-k of a whitespace query by BM25 (k1 = 1.2, b = 0.75, Lucene idf,
+    statistics per block of BLOCK_ROWS docs, any query word matches),
+    computed in f64 from the documents' words alone: ``words [n, 4]`` holds
+    each doc's words, of which the first ``n_words[i]`` count. Equal scores
+    rank by ascending row id. -> (row ids, scores)."""
+    rows, scores = [], []
+    for s in range(0, len(words), BLOCK_ROWS):
+        w, nw = words[s:s + BLOCK_ROWS], n_words[s:s + BLOCK_ROWS]
+        live = np.arange(4)[None, :] < nw[:, None]
+        total = np.zeros(len(w))
+        hit = np.zeros(len(w), bool)
+        for term in text.split():
+            tf = ((w == term) & live).sum(1).astype(np.float64)
+            df = float((tf > 0).sum())
+            idf = np.log(1.0 + (len(w) - df + 0.5) / (df + 0.5))
+            total += idf * tf * 2.2 / (
+                tf + 1.2 * (0.25 + 0.75 * nw / nw.mean()))
+            hit |= tf > 0
+        ids = np.nonzero(hit)[0]
+        rows.append(ids + s)
+        scores.append(total[ids].astype(np.float32))
+    rows, scores = np.concatenate(rows), np.concatenate(scores)
+    order = np.lexsort((rows, -scores))[:k]
+    return rows[order], scores[order]
+
+
+def phase_match(card, profile):
+    """BM25 text serving and fused text+vector serving at the reference's
+    product scale (benchmarks/hybrid_serving_bench.py), through
+    SessionContext.prepare / execute / execute_batch.
+    Returns the kernel's launch count over the phase."""
+    import databend_tpu_torch as dt
+    from databend_tpu_torch.expression import Column, DataBlock
+    from databend_tpu_torch.index.inverted.device import ImpactBM25
+    from databend_tpu_torch.ops.impact_bm25 import impact_bm25_scores
+    from databend_tpu_torch.types import String, VectorType
+
+    n, d = MATCH_ROWS, DIM
+    rng = np.random.default_rng(MATCH_SEED)
+    t0 = time.perf_counter()
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    xn = x / np.linalg.norm(x, axis=1, keepdims=True)
+    del x
+    cats = np.array(["a", "b", "c", "d"])[rng.integers(0, 4, n)]
+    words = np.array(MATCH_WORDS)[rng.integers(0, len(MATCH_WORDS), (n, 4))]
+    n_words = rng.integers(2, 5, n)
+    texts = [" ".join(words[i, :n_words[i]]) for i in range(n)]
+    print(f"[match] {n} rows x (cat, body of 2-4 words, emb {d}) in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    n_blocks = -(-n // BLOCK_ROWS)
+    batches = 0
+
+    with tempfile.TemporaryDirectory() as root:
+        ctx = dt.SessionContext(root)
+        try:
+            ctx.sql(f"CREATE TABLE hy (id BIGINT, cat VARCHAR, body VARCHAR, "
+                    f"emb VECTOR({d})) ROW_PER_BLOCK='{BLOCK_ROWS}'")
+            ctx.sql("CREATE INVERTED INDEX hy_i ON hy(body)")
+            t0 = time.perf_counter()
+            for s in range(0, n, BLOCK_ROWS):
+                e = min(s + BLOCK_ROWS, n)
+                ctx.insert_block("hy", DataBlock(
+                    ["id", "cat", "body", "emb"],
+                    [Column.from_numpy(np.arange(s, e, dtype=np.int64)),
+                     Column.from_pylist(cats[s:e].tolist(), String),
+                     Column.from_pylist(texts[s:e], String),
+                     Column.from_numpy(xn[s:e], VectorType(d))]))
+            print(f"[match] insert + inverted index build, {n} rows in "
+                  f"{n_blocks} blocks: {time.perf_counter() - t0:.1f} s "
+                  f"[{card}]")
+
+            text_sql = ("SELECT id, score() FROM hy WHERE match(body, {t}) "
+                        "ORDER BY score() DESC LIMIT 10")
+            fused_sql = ("SELECT id FROM hy WHERE match(body, {t}) ORDER BY "
+                         "0.04 * score() - cosine_distance(emb, {v}) DESC "
+                         "LIMIT 10")
+            pool = [" ".join(rng.choice(MATCH_WORDS, 2, replace=False))
+                    for _ in range(1024)]
+            qis = rng.integers(0, n, 128)
+            Q = xn[qis] + 0.02 * rng.standard_normal((128, d)).astype(np.float32)
+
+            def vec(v):
+                return "[" + ",".join(f"{f:.6f}" for f in v) + "]"
+
+            def same_as_generic(res, sql, what):
+                want = ctx.sql(sql).rows()
+                got = res.rows()
+                check([r[0] for r in got] == [r[0] for r in want],
+                      f"{what}: served rows {got[:3]} != generic {want[:3]}")
+                if got and len(got[0]) > 1:
+                    check(np.allclose([r[1] for r in got],
+                                      [r[1] for r in want], rtol=1e-4),
+                          f"{what}: served scores differ from generic")
+                check(len(got) == K, f"{what}: {len(got)} rows")
+
+            impact_bm25_scores.launches = 0
+            pm = ctx.prepare(text_sql.format(t="?"))
+            t0 = time.perf_counter()
+            first = pm.execute(pool[0])
+            batches += 1
+            first_s = time.perf_counter() - t0
+            m = pm._match
+            check(m is not None and m._snap_id is not None,
+                  "the match server did not engage")
+            check(len(m._scorers) == n_blocks and all(
+                isinstance(sc, ImpactBM25) and sc._term_ids.is_cuda
+                and sc.n_pad <= BLOCK_ROWS for sc in m._scorers),
+                  "the blocks are not served by ImpactBM25 on the card")
+            same_as_generic(first, text_sql.format(t=f"'{pool[0]}'"),
+                            "match single")
+            o_rows, o_scores = bm25_oracle(words, n_words, pool[0], K)
+            got = first.rows()
+            check([r[0] for r in got] == o_rows.tolist(),
+                  f"match single: rows {got} != numpy BM25 {o_rows}")
+            check(np.allclose([r[1] for r in got], o_scores, rtol=1e-4),
+                  "match single: scores differ from numpy BM25")
+            print(f"[match] prepared match() single, first call (builds and "
+                  f"uploads {n_blocks} block layouts, L={m._scorers[0].L}): "
+                  f"{first_s:.3f} s; rows and scores equal the generic path "
+                  f"and a numpy BM25 [{card}]")
+            times = []
+            for i in range(1, 1 + REPS):
+                t0 = time.perf_counter()
+                pm.execute(pool[i])
+                batches += 1
+                times.append(time.perf_counter() - t0)
+            print(f"[match] prepared match() single: "
+                  f"{1 / float(np.median(times)):.1f} QPS (median of {REPS} "
+                  f"calls, {[round(t * 1e3, 3) for t in times]} ms) [{card}]")
+
+            def timed_batches(ps, make_sets, bsz, what, checks):
+                """A checked warm-up batch, then REPS timed batches of
+                fresh parameter sets."""
+                nonlocal batches
+                sets = make_sets(0)
+                res = ps.execute_batch(sets)
+                batches += 1
+                check(len(res) == bsz and ps._match._snap_id is not None,
+                      f"{what}: not served")
+                for i in checks:
+                    same_as_generic(res[i], *literal(sets[i]), f"{what}[{i}]")
+                times = []
+                for r in range(1, 1 + REPS):
+                    sets = make_sets(r)
+                    t0 = time.perf_counter()
+                    res = ps.execute_batch(sets)
+                    times.append(time.perf_counter() - t0)
+                    batches += 1
+                dt_b = float(np.median(times))
+                print(f"[match] {what}: {bsz / dt_b:.1f} QPS (median of "
+                      f"{REPS} batches, {[round(t * 1e3, 3) for t in times]} "
+                      f"ms); batch 0 equals the generic path at {checks} "
+                      f"[{card}]")
+
+            def literal(ps_set):
+                if isinstance(ps_set, str):
+                    return (text_sql.format(t=f"'{ps_set}'"),)
+                return (fused_sql.format(t=f"'{ps_set[0]}'", v=vec(ps_set[1])),)
+
+            for bsz in (8, 128):
+                timed_batches(
+                    pm, lambda r, b=bsz: pool[(r * b) % 896:(r * b) % 896 + b],
+                    bsz, f"prepared match() B={bsz}", (0, bsz - 1))
+            res = pm.execute_batch(pool[:128])
+            batches += 1
+            o_rows, o_scores = bm25_oracle(words, n_words, pool[64], K)
+            check([r[0] for r in res[64].rows()] == o_rows.tolist()
+                  and np.allclose([r[1] for r in res[64].rows()], o_scores,
+                                  rtol=1e-4),
+                  "match B=128 [64]: differs from numpy BM25")
+
+            pf = ctx.prepare(fused_sql.format(t="?", v="?"))
+            timed_batches(
+                pf, lambda r: [(t, list(map(float, q + 1e-6 * r)))
+                               for t, q in zip(pool[:128], Q)],
+                128, "prepared fused 0.04*score() - cosine_distance B=128",
+                (0, 31))
+            check(pf._match.shape.fused and len(pf._match._embs) == n_blocks
+                  and pf._match._embs[0].is_cuda, "fused state not on the card")
+            launches = impact_bm25_scores.launches
+            check(launches == n_blocks * batches,
+                  f"impact_bm25_scores launched {launches} times over "
+                  f"{batches} batches of {n_blocks} blocks")
+            print(f"[match] impact_bm25_scores launches: {launches} = "
+                  f"{n_blocks} blocks x {batches} served batches")
+
+            for what, sql in (("match()", text_sql.format(t="'{t}'")),
+                              ("fused", None)):
+                lats = []
+                for i in range(8):
+                    q_sql = sql.format(t=pool[i]) if sql else \
+                        fused_sql.format(t=f"'{pool[i]}'", v=vec(Q[i]))
+                    t0 = time.perf_counter()
+                    ctx.sql(q_sql)
+                    lats.append(time.perf_counter() - t0)
+                print(f"[match] generic literal {what} statement: "
+                      f"{float(np.median(lats)) * 1e3:.1f} ms per query "
+                      f"(median of 8) [{card}]")
+            if profile:
+                fsets = [(t, list(map(float, q))) for t, q in zip(pool[:128], Q)]
+                profile_call("match() B=128", card,
+                             lambda r: pm.execute_batch(
+                                 pool[128 * r:128 * (r + 1)]))
+                profile_call("fused B=128", card,
+                             lambda r: pf.execute_batch(fsets))
+            return launches
+        finally:
+            ctx.close()
+
+
 def phase_cluster(card):
     """CLUSTER BY over a vector column: k-means on the card at the
     reference's operating point, then a KNN query on the clustered table."""
@@ -513,6 +931,9 @@ def check_standalone():
     print(f"[standalone] {len(mods)} port modules loaded, all from {port}: "
           f"{not strays}; jax / databend_tpu modules loaded: {leaked}")
     check(not strays, f"port modules from elsewhere: {strays}")
+    check("databend_tpu_torch.index.inverted.device" in mods
+          and "databend_tpu_torch.ops.impact_bm25" in mods,
+          "the device BM25 modules were not loaded")
     check("databend_tpu_torch._reference" not in mods,
           "databend_tpu_torch._reference is loaded")
     check(not leaked, f"reference modules loaded: {leaked}")
@@ -528,6 +949,50 @@ def _kernels(events):
     own device time repeats that of the kernels it launched."""
     from torch.autograd import DeviceType
     return [e for e in events if e.device_type == DeviceType.CUDA]
+
+
+def profile_call(what, card, call, reps=3):
+    """torch.profiler over ``reps`` calls of ``call(r)`` after a warm-up:
+    whole-call ms (host clock), device-busy ms (the summed time of the
+    profiler's device-side events), idle share and the biggest device items,
+    per call."""
+    from torch.profiler import ProfilerActivity, profile
+    call(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for r in range(reps):
+            call(r)
+        torch.cuda.synchronize()
+        whole = (time.perf_counter() - t0) / reps * 1e3
+    events = _kernels(prof.key_averages())
+    busy = sum(_device_us(e) for e in events) / reps / 1e3
+    top = sorted(events, key=_device_us, reverse=True)[:8]
+    items = "; ".join(f"{e.key[:60]} {_device_us(e) / reps / 1e3:.3f} ms"
+                      for e in top if _device_us(e) > 0)
+    print(f"[profile] {what}: whole call {whole:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {100 * (1 - busy / whole):.0f}%, "
+          f"{sum(e.count for e in events) // reps} device items per call; "
+          f"biggest: {items} [{card}]")
+    check(busy > 0, "the profiler saw no device time")
+    # where the host's time goes: cProfile (it slows the host, so read the
+    # shares, not the sum), the port's functions by cumulative time
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    for r in range(reps):
+        call(r)
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    port = sorted(((ct, fn, name) for (fn, _, name), (_, _, _, ct, _)
+                   in stats.items() if "databend_tpu_torch" in fn),
+                  reverse=True)[:12]
+    print(f"[profile] {what}, host cumulative ms per call under cProfile: "
+          + "; ".join(f"{os.path.basename(fn)}:{name} {ct / reps * 1e3:.2f}"
+                      for ct, fn, name in port) + f" [{card}]")
 
 
 def profile_modes(ctx, queries, card, reps=3):
@@ -588,11 +1053,17 @@ def main():
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    build_kernels()
     kern = phase_kernels(card)
+    imp = phase_impact_kernels(card)
     if "--diagnose" in sys.argv[1:]:
         diagnose_flash(card)
-    launches = phase_main_path(card, "--profile" in sys.argv[1:])
+    profile = "--profile" in sys.argv[1:]
+    launches = phase_main_path(card, profile)
     check(launches > 0, "the main path launched flash_group_minima no time")
+    imp_launches = phase_match(card, profile)
+    check(imp_launches > 0, "the [match] path launched impact_bm25_scores "
+                            "no time")
     phase_cluster(card)
     phase_suites(card)
     check_standalone()
@@ -600,13 +1071,24 @@ def main():
     err = max(v[0] for v in kern.values())
     # the serving chunk shape
     _, ms, plain_ms, bound_ms, bound_by = kern[("l2", 256, DIM)]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "flash_group_minima", "route": "cuda",
         "source": "databend_tpu_torch/csrc/flash_group_minima.cu",
         "replaces": "databend_tpu/ops/flash_topk.py:94",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}]
+    # the serving shape of a B = 128 text batch on one block
+    _, ms, plain_ms, bound_ms, bound_by = imp[("OR", 8, 128, 4)]
+    kernels.append({
+        "name": "impact_bm25_scores", "route": "cuda",
+        "source": "databend_tpu_torch/csrc/impact_bm25_scores.cu",
+        "replaces": "databend_tpu/index/inverted/device.py:409",
+        "launches": imp_launches,
+        "max_abs_err": max(v[0] for v in imp.values()), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

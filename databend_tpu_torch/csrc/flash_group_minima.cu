@@ -375,6 +375,13 @@ flash_group_minima_kernel(__grid_constant__ const CUtensorMap xmap,
         float2 nrm[16];
 #pragma unroll
         for (int j = 0; j < 16; ++j) nrm[j] = nv[4 * j];
+        // The norms are read with ordinary shared-memory loads, and the
+        // arrive below lets the producer's next bulk copy overwrite them.
+        // Without a fence the arrive can overtake loads that are still
+        // queued behind the warpgroups' wgmma operand traffic: with one
+        // step per tile (tile = 128) about one launch in 75 read the last
+        // 64 bytes of the norms of the stage's next occupant.
+        __threadfence_block();
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * prev);
 #pragma unroll

@@ -36,6 +36,43 @@ def topk_smallest(dists: torch.Tensor, k: int,
     return vals, pos
 
 
+def _stable_order(key: torch.Tensor, descending: bool, *rows: torch.Tensor):
+    order = torch.sort(key, dim=1, descending=descending, stable=True).indices
+    return [torch.gather(r, 1, order) for r in rows]
+
+
+def topk_largest_lowest_index(values: torch.Tensor, k: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Largest-k per row of ``values [B, N]`` (no NaN) -> (values, indices)
+    ``[B, k]`` in ``jax.lax.top_k``'s order: by value descending and, among
+    equal values, by index ascending, and of the entries equal to the k-th
+    value the ones with the lowest indices are kept. ``torch.topk`` promises
+    neither, and BM25 over short texts ties by the thousand.
+
+    One ``torch.topk`` finds the k-th value; every entry above it is in that
+    result whatever torch chose. A second ``torch.topk``, over ``N - index``
+    of the entries equal to the k-th value (distinct keys, so nothing is left
+    to choice), finds their lowest indices. The ``[B, 2k]`` candidates are
+    then ordered with stable sorts. No host synchronisation."""
+    n = values.shape[1]
+    vals, idx = torch.topk(values, k, dim=1)
+    kth = vals[:, -1:]
+    from_end = torch.arange(n, 0, -1, dtype=torch.int32, device=values.device)
+    key = torch.where(values == kth, from_end, 0)
+    tied_idx = (n - torch.topk(key, k, dim=1).values).to(idx.dtype)
+    above = vals > kth
+    room = k - above.sum(1, keepdim=True)     # >= 1: the k-th entry itself
+    tied_ok = torch.arange(k, device=values.device)[None, :] < room
+    c_idx = torch.cat([idx, tied_idx], 1)
+    c_val = torch.cat([vals, kth.expand(-1, k)], 1)
+    c_ok = torch.cat([above, tied_ok], 1).to(torch.int8)
+    # least significant key first: index, then value, then validity
+    c_idx, c_val, c_ok = _stable_order(c_idx, False, c_idx, c_val, c_ok)
+    c_idx, c_val, c_ok = _stable_order(c_val, True, c_idx, c_val, c_ok)
+    c_idx, c_val = _stable_order(c_ok, True, c_idx, c_val)
+    return c_val[:, :k].contiguous(), c_idx[:, :k].contiguous()
+
+
 def chunked_topk_smallest(q: torch.Tensor, x: torch.Tensor, k: int,
                           metric: str, chunk_rows: int = 131072,
                           compute_dtype=torch.float32,

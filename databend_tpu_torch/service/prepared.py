@@ -29,8 +29,10 @@ f32 re-rank of the shortlisted groups. A batch of one chunk runs the exact
 program in both modes, as in the reference. l1 has no matmul form and takes
 the plain scan. A filtered statement cannot hand its per-query masks to the
 kernel, so it selects with the plain ``torch.topk`` in both modes, and its
-approximate answer is exact. ``match()`` statements are served by the
-generic SQL path (host BM25) until the device BM25 scorer is ported.
+approximate answer is exact. ``match()`` statements above
+``_MatchServer.DEVICE_MIN_DOCS`` rows are served from per-block device BM25
+scorers (``index/inverted/device.py``), text-only and fused with a vector
+distance.
 """
 
 from __future__ import annotations
@@ -861,19 +863,132 @@ def match_match_shape(stmt: A.Statement) -> Optional[_MatchShape]:
 
 
 class _MatchServer:
-    """Full-text serving of a ``match()`` statement. The reference serves it
-    from per-block device BM25 scorers (``index/inverted/device.py``), which
-    the port has not ported yet (ROADMAP item 10): ``refresh`` declines
-    every statement, so ``PreparedStatement`` runs it through the generic
-    SQL path, which scores on the host (``InvertedBlockReader.bm25_scores``)
-    as the reference does for any statement its server cannot take."""
+    """Bound full-text serving state: per-block device-resident ImpactBM25
+    scorers (dense doc-major layout, index/inverted/device.py) + a host
+    projection block. A batch of query strings tokenizes host-side and
+    runs ONE scoring kernel and one top-k per block; per-query global top-k
+    merges across blocks on host (k rows each). This is the SQL product path
+    of the batched BM25 kernel (``ops.impact_bm25``)."""
+
+    # below this corpus size the generic path scores on the host (the
+    # reference's gate, kept until it is re-measured on the H100)
+    DEVICE_MIN_DOCS = 20_000
 
     def __init__(self, ctx, shape: _MatchShape):
         self.ctx = ctx
         self.shape = shape
+        self._snap_id: Optional[str] = None
+        self._scorers: List[Any] = []
+        self._readers: List[Any] = []
+        self._bases: List[int] = []
+        self._proj: Optional[DataBlock] = None
+        self._n = 0
 
     def refresh(self) -> bool:
-        return False
+        from ..utils.cache import CacheManager
+        from ..index.inverted.reader import InvertedBlockReader
+        from ..index.inverted.device import ImpactBM25
+        sh = self.shape
+        try:
+            table = self.ctx.table(sh.table, sh.database)
+        except Exception:
+            return False
+        info = getattr(table, "info", None)
+        if info is None:
+            return False
+        indexes = info.inverted_indexes()
+        if not indexes:
+            return False
+        cols = [sh.column.lower()] if sh.column else []
+        idx = next((i for i in indexes
+                    if not cols or cols[0] in [c.lower() for c in i.columns]),
+                   indexes[0] if not cols else None)
+        if idx is None:
+            return False
+        self._table = table
+        snap = table.read_snapshot()
+        if snap is None:
+            self._snap_id, self._n = None, 0
+            return True
+        if snap.snapshot_id == self._snap_id:
+            return True
+        metas = [m for seg in table.read_segments(snap) for m in seg.blocks]
+        if not metas:
+            self._snap_id, self._n = snap.snapshot_id, 0
+            return True
+        cm = CacheManager.instance().inverted_indexes
+        readers, scorers, bases = [], [], []
+        base = 0
+        for m in metas:
+            entry = m.inverted_indexes.get(idx.name)
+            if entry is None:
+                return False    # block not indexed yet: generic path
+            path = table.abs_path(entry["location"])
+            reader = cm.get_or_load(
+                path, lambda p=path: InvertedBlockReader.load(p))
+            scorer = getattr(reader, "_impact_scorer", None)
+            if scorer is None:
+                scorer = ImpactBM25.try_create(reader)
+                reader._impact_scorer = scorer or False
+            elif scorer is False:
+                scorer = None
+            if scorer is None and reader.n_docs >= self.DEVICE_MIN_DOCS:
+                # CSR batch program as the fallback dense layout can't take
+                scorer = reader._device_bm25()
+            readers.append(reader)
+            scorers.append(scorer)
+            bases.append(base)
+            base += m.row_count
+        self._n = base
+        if self._n < self.DEVICE_MIN_DOCS:
+            return False        # host path below the gate
+        if sh.fused and not self._setup_fusion(table, metas, scorers):
+            return False
+        self._readers, self._scorers, self._bases = readers, scorers, bases
+        # host projection block in corpus row order
+        proj_srcs = []
+        for kind, name, out in sh.items:
+            if kind == "star":
+                proj_srcs.extend(table.schema.field_names())
+            elif kind == "col":
+                proj_srcs.append(table.schema.field(name).name)
+        proj_srcs = list(dict.fromkeys(proj_srcs))
+        self._proj = (DataBlock.concat(
+            [table.read_block(m, proj_srcs) for m in metas])
+            if proj_srcs else None)
+        self._snap_id = snap.snapshot_id
+        return True
+
+    def _setup_fusion(self, table, metas, scorers) -> bool:
+        """Per-block padded embedding slices, device-resident, for the
+        fused text+vector program (cosine rows pre-normalized)."""
+        from ..index.inverted.device import ImpactBM25
+        sh = self.shape
+        try:
+            f = table.schema.field(sh.emb_column)
+        except Exception:
+            return False
+        vt = f.dtype.remove_nullable()
+        if not isinstance(vt, VectorType):
+            return False
+        self._dim = vt.dim
+        metric = _DISTANCE_FNS[sh.dist_fn]
+        embs = []
+        for m, scorer in zip(metas, scorers):
+            if not isinstance(scorer, ImpactBM25):
+                return False   # the CSR fallback has no fused program
+            e = np.asarray(table.read_block(m, [f.name])
+                           .column(f.name).numpy(), np.float32)
+            if metric == "cosine":
+                e = e / np.maximum(
+                    np.linalg.norm(e, axis=1, keepdims=True), 1e-30)
+            pad = scorer.n_pad - e.shape[0]
+            if pad:
+                e = np.concatenate(
+                    [e, np.zeros((pad, e.shape[1]), np.float32)])
+            embs.append(backend.to_device(e))
+        self._embs = embs
+        return True
 
     # ---------------------------------------------------------- gate checks
     @staticmethod
@@ -919,11 +1034,137 @@ class _MatchServer:
     def can_serve_texts(self, texts: List[str]) -> bool:
         return all(self._servable_text(t) for t in texts) and self.refresh()
 
+    # ------------------------------------------------------------- serving
+    def _term_groups(self, reader, tokens: List[str]) -> List[List[int]]:
+        fz = self.shape.fuzziness
+        if fz:
+            return [reader.fuzzy_term_ids(t, int(fz)) for t in tokens]
+        return [[reader.term_id(t)] for t in tokens]
+
     def run_batch(self, texts: List[str], Q: Optional[np.ndarray] = None
                   ) -> Optional[List["QueryResult"]]:
-        """Not reached (``refresh`` declines); None makes the caller fall
-        back to the generic path."""
-        return None
+        """One device program per block for the whole batch; per-query
+        top-k merge across blocks host-side. None -> caller falls back.
+        Fused shapes take the [B, d] query-vector batch in ``Q`` and rank
+        by the combined w_s*bm25 + w_d*dist (maximization-normalized)."""
+        from ..index.inverted.tokenizer import tokenize_text
+        from ..types import Int64
+        from .session import QueryResult
+        sh = self.shape
+        k = sh.k
+        B = len(texts)
+        if self._n == 0:
+            return [self._empty_result() for _ in range(B)]
+        metric = None
+        if sh.fused:
+            if Q is None:
+                return None
+            Q = np.asarray(Q, np.float32)
+            if Q.ndim != 2 or Q.shape[0] != B or Q.shape[1] != self._dim:
+                return None
+            metric = _DISTANCE_FNS[sh.dist_fn]
+        tok_cache = {}
+        r0 = self._readers[0]
+        tokens_per_q = []
+        for t in texts:
+            key = t
+            if key not in tok_cache:
+                tok_cache[key] = tokenize_text(t, r0.tokenizer, r0.filters)
+            tokens_per_q.append(tok_cache[key])
+        # per-block batched scoring (device): dispatch EVERY block's
+        # scoring first, then fetch: the card scores one block while the
+        # host packs the next, and nothing waits in between. Small
+        # unindexed-impact blocks score host-side.
+        merged_rows = [[] for _ in range(B)]
+        merged_scores = [[] for _ in range(B)]
+        pending = []  # (scorer|None, handle_or_results)
+        for bi, (reader, scorer, base) in enumerate(
+                zip(self._readers, self._scorers, self._bases)):
+            groups = [self._term_groups(reader, toks)
+                      for toks in tokens_per_q]
+            if sh.fused:
+                pending.append((scorer, scorer.dispatch_fused_top_k_batch(
+                    groups, k, sh.operator, self._embs[bi], Q,
+                    sh.w_score, sh.w_dist, metric)))
+            elif scorer is not None:
+                pending.append((scorer, scorer.dispatch_top_k_batch(
+                    groups, k, sh.operator)))
+            else:
+                results = []
+                for tg in groups:
+                    rows, scores = reader.bm25_scores(tg, sh.operator)
+                    if len(rows) > k:
+                        sel = np.argpartition(-scores, k - 1)[:k]
+                        rows, scores = rows[sel], scores[sel]
+                    results.append((rows, scores))
+                pending.append((None, results))
+        for (scorer, item), base in zip(pending, self._bases):
+            results = item if scorer is None else scorer.collect(item)
+            for qi, (rows, scores) in enumerate(results):
+                if len(rows):
+                    merged_rows[qi].append(rows + base)
+                    merged_scores[qi].append(scores)
+        out = []
+        fields = self._fields()
+        all_rows, all_scores, counts = [], [], []
+        for qi in range(B):
+            if merged_rows[qi]:
+                rows = np.concatenate(merged_rows[qi])
+                scores = np.concatenate(merged_scores[qi])
+                order = np.argsort(-scores, kind="stable")[:k]
+                rows, scores = rows[order], scores[order]
+            else:
+                rows = np.zeros(0, np.int64)
+                scores = np.zeros(0, np.float32)
+            all_rows.append(rows)
+            all_scores.append(scores)
+            counts.append(len(rows))
+        # ONE bulk projection gather for the whole batch
+        flat = np.concatenate(all_rows) if all_rows else np.zeros(0, np.int64)
+        taken_all = self._proj.take(flat) if self._proj is not None else None
+        off = 0
+        schema_names = self._table.schema.field_names()
+        for qi in range(B):
+            cnt = counts[qi]
+            taken = (taken_all.slice(off, off + cnt)
+                     if taken_all is not None else None)
+            off += cnt
+            names, cols = [], []
+            for kind, name, outn in sh.items:
+                if kind == "star":
+                    for fname in schema_names:
+                        names.append(fname)
+                        cols.append(taken.column(fname))
+                elif kind == "col":
+                    src = self._table.schema.field(name).name
+                    names.append(outn)
+                    cols.append(taken.column(src))
+                else:
+                    names.append(outn)
+                    cols.append(Column(Float32, all_scores[qi]))
+            out.append(QueryResult(DataBlock(names, cols), fields))
+        return out
+
+    def _fields(self) -> List[DataField]:
+        out = []
+        for kind, name, outn in self.shape.items:
+            if kind == "star":
+                for f in self._table.schema.fields:
+                    out.append(DataField(f.name, f.dtype))
+            elif kind == "col":
+                f = self._table.schema.field(name)
+                out.append(DataField(outn, f.dtype))
+            else:
+                out.append(DataField(outn, Float32))
+        return out
+
+    def _empty_result(self):
+        from .session import QueryResult
+        fields = self._fields()
+        return QueryResult(
+            DataBlock([f.name for f in fields],
+                      [Column.from_pylist([], f.dtype) for f in fields]),
+            fields)
 
 
 # ------------------------------------------------------------------ statement

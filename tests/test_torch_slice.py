@@ -285,10 +285,11 @@ def _text_table(ctx, expr_mod, types_mod, n=600, seed=5):
 
 
 def test_prepared_match_matches_jax(tmp_path, monkeypatch):
-    """A prepared BM25 ``match()`` statement: JAX serves it from its device
-    scorers (the size gate lowered to 0), the port declines to the generic
-    SQL path, which scores on the host; the same rows and scores."""
+    """A prepared BM25 ``match()`` statement above the size gate (lowered to
+    0 in both packages): both serve it from their device scorers; the same
+    rows and scores. Below the gate the port declines to the generic path."""
     from databend_tpu.service.prepared import _MatchServer as JaxMatch
+    from databend_tpu_torch.service.prepared import _MatchServer as TorchMatch
     monkeypatch.setattr(JaxMatch, "DEVICE_MIN_DOCS", 0)
     j = JaxContext(str(tmp_path / "jax"))
     t = TorchContext(str(tmp_path / "torch"))
@@ -298,7 +299,11 @@ def test_prepared_match_matches_jax(tmp_path, monkeypatch):
         sql = ("SELECT id, score() FROM mt WHERE match(body, ?) "
                "ORDER BY score() DESC LIMIT 7")
         jp, tp = j.prepare(sql), t.prepare(sql)
+        assert TorchMatch.DEVICE_MIN_DOCS == 20_000
         assert tp._match is not None and not tp._match.refresh()
+        monkeypatch.setattr(TorchMatch, "DEVICE_MIN_DOCS", 0)
+        assert tp._match.refresh() and tp._match._snap_id is not None
+        assert all(s is not None for s in tp._match._scorers)
         texts = ["weather news", "python", "cat videos maps"]
         for g, w in zip(tp.execute_batch(texts), jp.execute_batch(texts)):
             _same_rows(g.rows(), w.rows())

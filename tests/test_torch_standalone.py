@@ -30,6 +30,8 @@ PORT_OWN = {
     "ops/flash_topk.py": "wrapper of the CUDA group-min kernel",
     "index/hnsw/__init__.py": "graph build and search raise NotImplementedError",
     "index/kmeans.py": "Lloyd's iteration on torch",
+    "index/inverted/device.py": "BM25 programs on torch, the impact scorer "
+                                "through the CUDA kernel",
     "parallel/__init__.py": "empty: the mesh is not ported",
     "pipeline/device_scan_agg.py": "declines to the host (ROADMAP item 12)",
     "pipeline/device_join_agg.py": "declines to the host (ROADMAP item 12)",
@@ -41,7 +43,7 @@ PORT_OWN = {
         "_vector_prune_distributed raises NotImplementedError (item 11)",
     "sql/binder.py": "_finalize_scan: enable_distributed off, no jax",
     "service/prepared.py": "serving programs on torch, flash approximate "
-                           "mode, match() declines to the host",
+                           "mode, match() embeddings through backend",
     "service/system_tables.py": "build_options, clusters and credits "
                                 "from torch",
     "service/merge.py": "ScanState from the port's binder",
