@@ -1,5 +1,6 @@
 """Drive the port's serving paths once on one CUDA card: exact and
-approximate KNN, and BM25 text and hybrid text+vector serving.
+approximate KNN, BM25 text and hybrid text+vector serving, and the HNSW
+index (graph build at insert, beam search from SQL).
 
     python3 chip_smoke.py [--profile] [--diagnose]
 
@@ -50,14 +51,31 @@ Phases (any failure exits non-zero and prints no result line):
      and, for the text statement, a numpy BM25 computed from the texts,
      then timed (median of 5 batches of fresh texts after a warm-up); the
      scoring kernel must have been launched once per block and batch;
-  7. [cluster]: CREATE TABLE ... CLUSTER BY (emb) and an insert of 262,144
+  7. [hnsw]: first the port's build and search on the card against the same
+     code on CPU tensors (5,000 integer rows with duplicates, and a corpus
+     of equal rows: links and ids equal, so the card's sorts, minima and
+     scatters tie as the CPU's do). Then 1,000,000 SIFT-shaped rows (64
+     clusters, seed 23) in 4 blocks of 262,144 under
+     ``CREATE VECTOR INDEX ... distance='cosine' graphs='always'`` (m = 16,
+     ef_construct = 100): the insert builds one graph a block on the card
+     (seconds per block by stage); with ``vector_search_mode = 'hnsw'``,
+     EXPLAIN shows ``hnsw=on`` and 16 literal ``ORDER BY cosine_distance``
+     statements (k = 10, ef = 40) each run one beam search a block, reach
+     recall@10 >= HNSW_RECALL against the f64 truth and return the ids of a
+     direct ``hnsw_search`` over the loaded graphs merged by hand, whose
+     distances are within 1e-3 of the truth; recall@10 by ef over (40, 100,
+     200, 400) must not fall and reach HNSW_RECALL_WIDE; then ``hnsw_search`` alone on
+     one block at B = 1, 256 and 1,024 (ms per batch, steps; with --profile
+     device busy, idle share and device items per step). Nothing here falls
+     back to the exact scan or to the CPU;
+  8. [cluster]: CREATE TABLE ... CLUSTER BY (emb) and an insert of 262,144
      SIFT-shaped rows (the reference's batch of 64 clusters): k-means runs
      on the card, its cluster runs cover every row once, and a KNN query on
      the clustered table reaches recall@10 >= 0.99;
-  8. [suites]: ``python -m databend_tpu_torch sqllogic tests/suites/index``
+  9. [suites]: ``python -m databend_tpu_torch sqllogic tests/suites/index``
      on the card exits 0;
-  9. stand-alone: every loaded port module (the device BM25 module among
-     them) comes from the port's own directory, and no jax or databend_tpu
+  10. stand-alone: every loaded port module (the device BM25 and HNSW
+     modules among them) comes from the port's own directory, and no jax or databend_tpu
      module was loaded.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -87,6 +105,14 @@ IMPACT_RTOL = 1e-6     # kernel vs plain: the same f32 operations in the same or
 BLOCK_ROWS = 262_144   # rows per block of the [match] deployment
 MATCH_ROWS = 1_000_000
 MATCH_SEED = 17
+HNSW_ROWS = 1_000_000  # the [hnsw] deployment: blocks of BLOCK_ROWS
+HNSW_SEED = 23
+HNSW_CENTERS = 64      # clusters of the corpus (the reference's HNSW quality
+                       # corpus has 64: native/hnsw_baseline.cpp:190-195)
+HNSW_M, HNSW_EF_CONSTRUCT = 16, 100     # the reference's operating point
+HNSW_RECALL = 0.80     # recall@10 at ef = 4k = 40 on 16 queries (reads 0.825)
+HNSW_EF_SWEEP = (40, 100, 200, 400)
+HNSW_RECALL_WIDE = 0.95    # recall@10 at ef = 400 (reads 0.98125)
 MATCH_WORDS = ["weather", "news", "google", "maps", "cat", "videos", "python",
                "flights", "hotels", "music", "games", "sports", "stock",
                "market", "recipe", "travel"]
@@ -833,6 +859,221 @@ def phase_match(card, profile):
             ctx.close()
 
 
+def hold_hnsw_to_cpu(card):
+    """The port's HNSW on the card against the same code on CPU tensors, on
+    inputs whose arithmetic is exact (small integers, duplicate rows) or
+    whose distances all tie: the links and the ids must be equal, which
+    holds the card's stable sort, first-minimum and scatter semantics to
+    the CPU's (the CPU tests hold those to the reference)."""
+    from databend_tpu_torch import backend
+    from databend_tpu_torch.index.hnsw import build_hnsw, hnsw_search
+
+    def on_both(fn):
+        on_card = fn()
+        os.environ[backend.DEVICE_ENV] = "cpu"
+        try:
+            return on_card, fn()
+        finally:
+            del os.environ[backend.DEVICE_ENV]
+
+    check(backend.DEVICE_ENV not in os.environ and backend.device().type == "cuda",
+          "the port's device is not the card")
+    rng = np.random.default_rng(HNSW_SEED)
+    x = rng.integers(0, 6, size=(5000, 32)).astype(np.float32)
+    x[100:200] = x[0:100]
+    err = 0.0
+    for metric in ("l2", "ip"):
+        g, g_cpu = on_both(lambda: build_hnsw(x, m=8, ef_construct=40,
+                                              metric=metric, seed=5))
+        check(g.num_levels == g_cpu.num_levels
+              and all(np.array_equal(a, b) for a, b in zip(g.links, g_cpu.links)),
+              f"{metric}: the graph built on the card is not the CPU's")
+        (d, i), (d_cpu, i_cpu) = on_both(
+            lambda: hnsw_search(g, backend.to_device(x), x[:64] + 0.25, K))
+        check(np.array_equal(i, i_cpu), f"{metric}: ids differ from the CPU's")
+        err = max(err, float(np.abs(d - d_cpu).max()))
+    ones = np.ones((300, 8), np.float32)
+    g = build_hnsw(ones, m=4, ef_construct=16, metric="l2", seed=1)
+    (d, i), (d_cpu, i_cpu) = on_both(
+        lambda: hnsw_search(g, backend.to_device(ones), ones[:3], 8))
+    check(np.array_equal(i, i_cpu) and np.array_equal(d, d_cpu),
+          "equal rows: the card breaks ties another way than the CPU")
+    print(f"[hnsw] card vs CPU tensors, 5,000 x 32 integer rows (l2, ip) and "
+          f"300 equal rows: graphs equal, ids equal, max |distance "
+          f"difference| {err} [{card}]")
+    check(err <= 1e-5, f"distances differ from the CPU's by {err}")
+
+
+def phase_hnsw(card, profile):
+    """HNSW on the card: graphs built at insert, beam search from SQL, and
+    ``hnsw_search`` alone at three batch sizes."""
+    import databend_tpu_torch as dt
+    from databend_tpu_torch.expression import Column, DataBlock
+    from databend_tpu_torch.index.hnsw import hnsw_search
+    from databend_tpu_torch.index.hnsw.build import BUILD_STAGES
+    from databend_tpu_torch.index.hnsw.search import postprocess_scores
+    from databend_tpu_torch.types import VectorType
+    from databend_tpu_torch.utils.metrics import METRICS
+
+    def counter(name):
+        return METRICS.snapshot().get(name, 0)
+
+    hold_hnsw_to_cpu(card)
+    rng = np.random.default_rng(HNSW_SEED)
+    centers = rng.integers(0, 256, size=(HNSW_CENTERS, DIM)).astype(np.float32)
+    x = sift_like(rng, HNSW_ROWS, centers)
+    queries = sift_like(rng, 1024, centers)
+    d_cos, kth = ground_truth(x, queries[:N_GT], "cosine")
+    with tempfile.TemporaryDirectory() as root:
+        ctx = dt.SessionContext(root)
+        try:
+            ctx.sql(f"CREATE TABLE h (id BIGINT, emb VECTOR({DIM})) "
+                    f"ROW_PER_BLOCK='{BLOCK_ROWS}'")
+            ctx.sql("CREATE VECTOR INDEX hv ON h(emb) distance='cosine' "
+                    f"graphs='always' m='{HNSW_M}' "
+                    f"ef_construct='{HNSW_EF_CONSTRUCT}'")
+            done = {s: len(METRICS.histograms[f"hnsw_build_{s}_seconds"])
+                    for s in BUILD_STAGES}
+            t0 = time.perf_counter()
+            ctx.insert_block("h", DataBlock(
+                ["id", "emb"],
+                [Column.from_numpy(np.arange(HNSW_ROWS, dtype=np.int64)),
+                 Column.from_numpy(x, VectorType(DIM))]))
+            insert_s = time.perf_counter() - t0
+            table = ctx.table("h")
+            metas = [m for seg in table.read_segments(table.read_snapshot())
+                     for m in seg.blocks]
+            stages = {s: METRICS.histograms[f"hnsw_build_{s}_seconds"][done[s]:]
+                      for s in BUILD_STAGES}
+            check(all(len(v) == len(metas) for v in stages.values()),
+                  f"{len(metas)} blocks, build stages timed "
+                  f"{ {s: len(v) for s, v in stages.items()} }")
+            for bi, meta in enumerate(metas):
+                split = ", ".join(f"{s} {stages[s][bi]:.3f}" for s in BUILD_STAGES)
+                print(f"[hnsw] build block {bi} ({meta.row_count} rows x {DIM}, "
+                      f"m={HNSW_M}, ef_construct={HNSW_EF_CONSTRUCT}, cosine): "
+                      f"{sum(stages[s][bi] for s in BUILD_STAGES):.3f} s "
+                      f"({split}) [{card}]")
+            print(f"[hnsw] create + insert {HNSW_ROWS} rows with a graph on "
+                  f"each of {len(metas)} blocks: {insert_s:.1f} s [{card}]")
+            graphs = [table.load_vector_graph(m, "hv", "cosine") for m in metas]
+            check(all(g is not None and g.num_points == m.row_count
+                      and g.m0 == 2 * HNSW_M for g, m in zip(graphs, metas)),
+                  "a block has no graph of its size")
+
+            ctx.sql("SET vector_search_mode = 'hnsw'")
+            sql = "SELECT id FROM h ORDER BY cosine_distance(emb, {}) LIMIT 10"
+            lits = ["[" + ",".join(str(int(v)) for v in q) + "]"
+                    for q in queries[:N_GT]]
+            plan = "\n".join(r[0] for r in
+                             ctx.sql("EXPLAIN " + sql.format(lits[0])).rows())
+            check("vector_index=hv" in plan and "hnsw=on" in plan,
+                  f"EXPLAIN does not show the index: {plan}")
+            ctx.sql(sql.format(lits[0])).rows()        # loads the columns
+            searches = counter("hnsw_search_batches")
+            ids, times = [], []
+            for lit in lits:
+                t0 = time.perf_counter()
+                rows = ctx.sql(sql.format(lit)).rows()
+                times.append(time.perf_counter() - t0)
+                ids.append([i for (i,) in rows])
+            searches = counter("hnsw_search_batches") - searches
+            check(searches == N_GT * len(metas),
+                  f"{searches} beam searches for {N_GT} statements over "
+                  f"{len(metas)} blocks")
+            ids = np.array(ids)
+            r = recall(ids, d_cos, kth)
+
+            # the same answer from hnsw_search on the loaded graphs, by hand
+            xs = [table.device_vectors(m, "emb", normalized=True) for m in metas]
+            check(all(t.is_cuda for t in xs), "a block's vectors are not on the card")
+            offsets = np.cumsum([0] + [m.row_count for m in metas])
+            err, same = 0.0, 0
+            for qi in range(N_GT):
+                cand = []
+                for bi, (g, xd) in enumerate(zip(graphs, xs)):
+                    d, i = hnsw_search(g, xd, queries[qi:qi + 1], K)
+                    d = postprocess_scores(d, "cosine")
+                    cand += [(float(s), int(offsets[bi] + r_))
+                             for s, r_ in zip(d[0], i[0]) if r_ >= 0]
+                cand.sort(key=lambda t: t[0])
+                top = cand[:K]
+                same += sorted(i for _, i in top) == sorted(ids[qi].tolist())
+                err = max(err, max(abs(s - d_cos[qi, i]) for s, i in top))
+            print(f"[hnsw] literal ctx.sql KNN, vector_search_mode='hnsw', "
+                  f"k={K}, ef={4 * K}: median {np.median(times) * 1e3:.3f} ms a "
+                  f"statement over {len(metas)} blocks "
+                  f"({[round(t * 1e3, 1) for t in times]}), recall@10 {r} on "
+                  f"{N_GT} queries, {same} of {N_GT} id sets equal to the "
+                  f"direct search, max |distance - f64| {err} [{card}]")
+            check(r >= HNSW_RECALL, f"hnsw recall {r} < {HNSW_RECALL}")
+            check(same == N_GT, "the statement and the direct search differ")
+            check(err <= 1e-3, f"hnsw distances off by {err}")
+
+            # a wider beam must find more: the N_GT queries as one batch a
+            # block, merged over the blocks
+            sweep = {}
+            for ef in HNSW_EF_SWEEP:
+                per_block = [hnsw_search(g, xd, queries[:N_GT], K, ef=ef)
+                             for g, xd in zip(graphs, xs)]
+                d = np.concatenate([p[0] for p in per_block], axis=1)
+                i = np.concatenate([p[1] + offsets[bi] for bi, p
+                                    in enumerate(per_block)], axis=1)
+                top = np.argsort(d, axis=1, kind="stable")[:, :K]
+                sweep[ef] = recall(np.take_along_axis(i, top, 1), d_cos, kth)
+            print(f"[hnsw] recall@10 by ef, {N_GT} queries as one batch a "
+                  f"block: {sweep} [{card}]")
+            check(all(a <= b + 0.02 for a, b in zip(list(sweep.values()),
+                                                    list(sweep.values())[1:])),
+                  f"recall falls with a wider beam: {sweep}")
+            check(sweep[HNSW_EF_SWEEP[-1]] >= HNSW_RECALL_WIDE,
+                  f"recall at ef={HNSW_EF_SWEEP[-1]}: {sweep}")
+
+            # hnsw_search alone on block 0
+            g, xd = graphs[0], xs[0]
+            top0 = np.argsort(d_cos[:, :g.num_points], axis=1)[:, :K]
+            for b in (1, 256, 1024):
+                # B = 1: each of the N_GT queries alone; else one batch, REPS times
+                batches = [queries[j:j + 1] for j in range(N_GT)] if b == 1 \
+                    else [queries[:b]] * REPS
+                q = batches[0]
+                hnsw_search(g, xd, q, K)                           # warm
+                steps = counter("hnsw_search_steps")
+                bt, found = [], []
+                for qb in batches:
+                    t0 = time.perf_counter()
+                    d, i = hnsw_search(g, xd, qb, K)
+                    bt.append(time.perf_counter() - t0)
+                    check(np.isfinite(d).all() and (i >= 0).all()
+                          and (i < g.num_points).all(),
+                          f"B={b}: bad search result")
+                    found.append(i)
+                steps = (counter("hnsw_search_steps") - steps) / len(batches)
+                found = np.concatenate(found)[:N_GT] if b == 1 else found[-1]
+                nq = min(len(found), N_GT)
+                rb = float(np.mean([len(set(found[j]) & set(top0[j])) / K
+                                    for j in range(nq)]))
+                ms = float(np.median(bt)) * 1e3
+                print(f"[hnsw] hnsw_search one block ({g.num_points} rows) "
+                      f"B={b}: {ms:.3f} ms a batch (median of {len(bt)}, "
+                      f"{[round(t * 1e3, 3) for t in bt]}), {b / ms * 1e3:.1f} "
+                      f"QPS, {steps:.0f} level-0 steps of at most "
+                      f"{2 * 4 * K + 16}, {ms / steps:.4f} ms a step, recall@10 "
+                      f"{rb} on {nq} queries against the block's own truth "
+                      f"[{card}]")
+                check(rb >= HNSW_RECALL, f"B={b}: recall {rb}")
+                if profile:
+                    whole, busy, items = profile_call(
+                        f"hnsw_search B={b}", card,
+                        lambda r: hnsw_search(g, xd, q, K))
+                    print(f"[profile] hnsw_search B={b}: {items / steps:.1f} "
+                          f"device items a step, {busy / steps * 1e3:.1f} us "
+                          f"busy of {whole / steps * 1e3:.1f} us a step "
+                          f"[{card}]")
+        finally:
+            ctx.close()
+
+
 def phase_cluster(card):
     """CLUSTER BY over a vector column: k-means on the card at the
     reference's operating point, then a KNN query on the clustered table."""
@@ -934,6 +1175,9 @@ def check_standalone():
     check("databend_tpu_torch.index.inverted.device" in mods
           and "databend_tpu_torch.ops.impact_bm25" in mods,
           "the device BM25 modules were not loaded")
+    check("databend_tpu_torch.index.hnsw.build" in mods
+          and "databend_tpu_torch.index.hnsw.search" in mods,
+          "the HNSW modules were not loaded")
     check("databend_tpu_torch._reference" not in mods,
           "databend_tpu_torch._reference is loaded")
     check(not leaked, f"reference modules loaded: {leaked}")
@@ -976,6 +1220,7 @@ def profile_call(what, card, call, reps=3):
           f"{sum(e.count for e in events) // reps} device items per call; "
           f"biggest: {items} [{card}]")
     check(busy > 0, "the profiler saw no device time")
+    n_items = sum(e.count for e in events) // reps
     # where the host's time goes: cProfile (it slows the host, so read the
     # shares, not the sum), the port's functions by cumulative time
     import cProfile
@@ -993,6 +1238,7 @@ def profile_call(what, card, call, reps=3):
     print(f"[profile] {what}, host cumulative ms per call under cProfile: "
           + "; ".join(f"{os.path.basename(fn)}:{name} {ct / reps * 1e3:.2f}"
                       for ct, fn, name in port) + f" [{card}]")
+    return whole, busy, n_items
 
 
 def profile_modes(ctx, queries, card, reps=3):
@@ -1064,6 +1310,7 @@ def main():
     imp_launches = phase_match(card, profile)
     check(imp_launches > 0, "the [match] path launched impact_bm25_scores "
                             "no time")
+    phase_hnsw(card, profile)
     phase_cluster(card)
     phase_suites(card)
     check_standalone()

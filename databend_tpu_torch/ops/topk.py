@@ -73,17 +73,33 @@ def topk_largest_lowest_index(values: torch.Tensor, k: int
     return c_val[:, :k].contiguous(), c_idx[:, :k].contiguous()
 
 
+def _smallest(dists: torch.Tensor, k: int, lowest_index_ties: bool):
+    """Smallest-k (values, positions) per row; with ``lowest_index_ties``
+    equal distances rank by ascending position, as ``jax.lax.top_k`` ranks
+    them."""
+    if lowest_index_ties:
+        neg, pos = topk_largest_lowest_index(-dists, k)
+        return -neg, pos
+    return torch.topk(dists, k, dim=1, largest=False)
+
+
 def chunked_topk_smallest(q: torch.Tensor, x: torch.Tensor, k: int,
                           metric: str, chunk_rows: int = 131072,
                           compute_dtype=torch.float32,
                           x_sq_norms: Optional[torch.Tensor] = None,
                           base_id: int = 0,
-                          n_valid: Optional[int] = None
+                          n_valid: Optional[int] = None,
+                          lowest_index_ties: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan + score + k-select over ``x [N, d]`` in chunks of ``chunk_rows``:
     each chunk's scores fold into the running ``[B, k]`` set with one top-k
     over ``[B, k + chunk]``, so peak memory is one chunk, not ``[B, N]``.
     A ragged last chunk needs no padding.
+
+    ``lowest_index_ties``: select as ``jax.lax.top_k`` does, equal distances
+    by ascending row id (:func:`topk_largest_lowest_index`, about twice the
+    selection work). The HNSW build needs it: its graph is held equal to the
+    reference's on corpora with duplicate rows.
 
     ``n_valid``: rows with global id >= n_valid are padding and score +inf
     BEFORE selection (index masking is the only metric-safe pad exclusion).
@@ -96,7 +112,8 @@ def chunked_topk_smallest(q: torch.Tensor, x: torch.Tensor, k: int,
         ids = torch.arange(n, device=dev) + base_id
         if n_valid is not None:
             dists = torch.where(ids[None, :] < n_valid, dists, INF)
-        return topk_smallest(dists, min(k, n), ids=ids)
+        vals, pos = _smallest(dists, min(k, n), lowest_index_ties)
+        return vals, ids[pos]
     best_v = torch.full((b, k), INF, dtype=torch.float32, device=dev)
     best_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
     for start in range(0, n, chunk_rows):
@@ -108,7 +125,7 @@ def chunked_topk_smallest(q: torch.Tensor, x: torch.Tensor, k: int,
             dists = torch.where(ids[None, :] < n_valid, dists, INF)
         cat_v = torch.cat([best_v, dists], dim=1)
         cat_i = torch.cat([best_i, ids.expand(b, -1)], dim=1)
-        best_v, pos = torch.topk(cat_v, k, dim=1, largest=False)
+        best_v, pos = _smallest(cat_v, k, lowest_index_ties)
         best_i = torch.gather(cat_i, 1, pos)
     return best_v, best_i
 

@@ -28,11 +28,20 @@ PORT_OWN = {
     "ops/distance.py": "torch distances",
     "ops/topk.py": "torch top-k",
     "ops/flash_topk.py": "wrapper of the CUDA group-min kernel",
-    "index/hnsw/__init__.py": "graph build and search raise NotImplementedError",
+    "index/hnsw/__init__.py": "docstring: the torch build and search",
+    "index/hnsw/build.py": "graph build on torch: kNN graph, prune, "
+                           "dedupe + sort",
+    "index/hnsw/search.py": "batched beam search on torch, Python-driven "
+                            "loops",
     "index/kmeans.py": "Lloyd's iteration on torch",
     "index/inverted/device.py": "BM25 programs on torch, the impact scorer "
                                 "through the CUDA kernel",
-    "parallel/__init__.py": "empty: the mesh is not ported",
+    "parallel/__init__.py": "docstring: the one-device decline",
+    "parallel/mesh.py": "a grid of torch devices; get_default_mesh is None "
+                        "until the exchanges are ported (item 11b)",
+    "parallel/fragmenter.py": "the host halves only; execute declines "
+                              "without a mesh (item 11b)",
+    "parallel/exchange.py": "names only, each raises if called (item 11b)",
     "pipeline/device_scan_agg.py": "declines to the host (ROADMAP item 12)",
     "pipeline/device_join_agg.py": "declines to the host (ROADMAP item 12)",
     "pipeline/device_fusion.py": "the Fusion request type only (item 12)",
