@@ -1,6 +1,7 @@
 """Drive the port's serving paths once on one CUDA card: exact and
-approximate KNN, BM25 text and hybrid text+vector serving, and the HNSW
-index (graph build at insert, beam search from SQL).
+approximate KNN, BM25 text and hybrid text+vector serving, the HNSW
+index (graph build at insert, beam search from SQL), and the device
+scan-aggregate route (GROUP BY over card-resident columns).
 
     python3 chip_smoke.py [--profile] [--diagnose]
 
@@ -26,6 +27,11 @@ Phases (any failure exits non-zero and prints no result line):
      fused with a D = 128 distance term (cosine and l2), (L = 8, b = 8),
      (L = 64, b = 128, m = 8), (L = 512, b = 8, m = 4), b = 1, and a block
      that ends in 1,000 pad docs;
+     grouped_sums (bit-equal, beside one index_add_ into int32, the library
+     call; one read of ids and value rows and one write of the sums at
+     3.35 TB/s): n of 6M and 8M, K of 6 and 20 value rows, G of 1, 12, 64,
+     10,001 and 65,537, every row in one group, and one shape repeated 300
+     times; after [agg], on the inputs each [agg] statement gave it;
   4. the main path: SessionContext, CREATE TABLE / VECTOR INDEX, insert of
      1,000,000 SIFT1M-shaped rows (128-d integer values in [0, 255], seed 7),
      a literal KNN query, execute_batch (B=256), execute_batch_block
@@ -72,11 +78,23 @@ Phases (any failure exits non-zero and prints no result line):
      SIFT-shaped rows (the reference's batch of 64 clusters): k-means runs
      on the card, its cluster runs cover every row once, and a KNN query on
      the clustered table reaches recall@10 >= 0.99;
-  9. [suites]: ``python -m databend_tpu_torch sqllogic tests/suites/index``
+  9. [agg]: TPC-H SF1 lineitem (benchmarks/tpch.py's generator, 6,000,000
+     rows, seed 42) and five statements with the route on (its default):
+     Q1 and Q6 (mask engine), GROUP BY l_suppkey (10,001 groups, matmul),
+     GROUP BY l_partkey (200,001 groups, sort) and COUNT(DISTINCT
+     l_suppkey) by l_returnflag. Each: host time (route off), the first
+     routed call (builds and uploads the resident forms), the median of 5
+     warm calls; one routed query and no route error a call, the expected
+     engine, the host's rows (floats within rel 1e-12), and for Q1 / Q6 a
+     numpy computation in integer cents. grouped_sums must have launched
+     once per routed mask / matmul call. Then Q1 in 4 chunks of 1,500,000
+     rows, equal to the one-chunk Q1; with --profile each statement's warm
+     call under torch.profiler;
+  10. [suites]: ``python -m databend_tpu_torch sqllogic tests/suites/index``
      on the card exits 0;
-  10. stand-alone: every loaded port module (the device BM25 and HNSW
-     modules among them) comes from the port's own directory, and no jax or databend_tpu
-     module was loaded.
+  11. stand-alone: every loaded port module (the device BM25, HNSW and
+     scan-aggregate modules among them) comes from the port's own directory,
+     and no jax or databend_tpu module was loaded.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -113,6 +131,10 @@ HNSW_M, HNSW_EF_CONSTRUCT = 16, 100     # the reference's operating point
 HNSW_RECALL = 0.80     # recall@10 at ef = 4k = 40 on 16 queries (reads 0.825)
 HNSW_EF_SWEEP = (40, 100, 200, 400)
 HNSW_RECALL_WIDE = 0.95    # recall@10 at ef = 400 (reads 0.98125)
+AGG_SF = 1.0           # the [agg] deployment: TPC-H SF1 (6,000,000 lineitem rows)
+AGG_SEED = 42          # benchmarks/tpch.py's default seed
+AGG_REPS = 5           # warm routed calls per statement
+AGG_CHUNK_ROWS = 1_500_000  # Q1 once more in 4 chunks (the route's default: 8M)
 MATCH_WORDS = ["weather", "news", "google", "maps", "cat", "videos", "python",
                "flights", "hotels", "music", "games", "sports", "stock",
                "market", "recipe", "travel"]
@@ -237,7 +259,7 @@ def build_kernels():
     ptxas says and fail on any spill."""
     from concurrent.futures import ThreadPoolExecutor
     from databend_tpu_torch.ops import _cuda
-    names = ("flash_group_minima", "impact_bm25_scores")
+    names = ("flash_group_minima", "impact_bm25_scores", "grouped_sums")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_cuda.build, names)))
@@ -1138,6 +1160,352 @@ def phase_cluster(card):
     check(r >= 0.99, f"clustered KNN recall {r}")
 
 
+# ------------------------------------------------------------------- [agg]
+
+
+def grouped_sums_bound(n, k, groups):
+    """(ms, "bytes" or "operations"): one read of gid and the [K, n] rows
+    plus one write of the [K, G + 1] int32 sums at the memory rate, or one
+    int32 add per (row, value row) at the int32 instruction rate, whichever
+    is larger."""
+    t_bytes = 4 * (n + k * n + k * (groups + 1)) / HBM_BYTES_PER_S * 1e3
+    t_ops = k * n / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hold_grouped_sums(card, what, gid, rows, groups, repeats=0):
+    """One launch of grouped_sums against its plain version on the same
+    tensors (bit-equal: integer sums), ``repeats`` more launches that must
+    give the same bits, then the kernel, the plain version and the library
+    call (one ``index_add_`` into int32) timed beside the bound.
+    Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms)."""
+    from databend_tpu_torch.ops.grouped_sums import (
+        _grouped_sums_plain, grouped_sums)
+    k, n = rows.shape
+    before = grouped_sums.launches
+    got = grouped_sums(gid, rows, groups)
+    torch.cuda.synchronize()
+    check(grouped_sums.launches == before + 1, f"{what}: no launch")
+    want = _grouped_sums_plain(gid, rows, groups)
+    err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+    check(err == 0, f"grouped_sums vs plain {what}: max abs err {err}")
+    for i in range(repeats):
+        again = grouped_sums(gid, rows, groups)
+        check(torch.equal(again, got), f"{what}: launch {i + 2} differs from "
+                                       "the first")
+
+    def library():
+        return torch.zeros((k, groups + 1), dtype=torch.int32,
+                           device=rows.device).index_add_(1, gid, rows)
+
+    check(torch.equal(library(), want), f"{what}: index_add_ differs")
+    del got, want
+    ms = cuda_ms(lambda: grouped_sums(gid, rows, groups))
+    plain_ms = cuda_ms(lambda: _grouped_sums_plain(gid, rows, groups))
+    library_ms = cuda_ms(library)
+    bound_ms, bound_by = grouped_sums_bound(n, k, groups)
+    print(f"[kernel] grouped_sums {what}: max_abs_err {err}, kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.0f}% reached)"
+          f" [{card}]")
+    return err, ms, plain_ms, bound_ms, bound_by, library_ms
+
+
+def phase_grouped_sums_kernel(card):
+    """grouped_sums at the route's sizes: n of 6M (TPC-H SF1 lineitem) and
+    8M (one full chunk), K of 6 and 20 value rows, G of 1, 12, 64 (the mask
+    engine), 10,001 and 65,537 (the matmul engine); ids uniform over
+    [0, G], values in [-255, 255] (a limb's range). Then every row in one
+    group (the most contention), and one shape repeated 300 times."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    results = {}
+    for n in (6_000_000, 8_000_000):
+        for k in (6, 20):
+            rows = torch.randint(-255, 256, (k, n), generator=g,
+                                 device="cuda", dtype=torch.int32)
+            for groups in (1, 12, 64, 10_001, 65_537):
+                gid = torch.randint(0, groups + 1, (n,), generator=g,
+                                    device="cuda", dtype=torch.int32)
+                results[(n, k, groups)] = hold_grouped_sums(
+                    card, f"n={n} K={k} G={groups}", gid, rows, groups,
+                    repeats=300 if (n, k, groups) == (6_000_000, 20, 12)
+                    else 0)
+            del rows
+    n, k = 6_000_000, 20
+    rows = torch.randint(-255, 256, (k, n), generator=g, device="cuda",
+                         dtype=torch.int32)
+    gid = torch.zeros(n, dtype=torch.int32, device="cuda")
+    results["one group"] = hold_grouped_sums(
+        card, f"n={n} K={k} G=12, every row in group 0", gid, rows, 12)
+    del rows, gid
+    torch.cuda.empty_cache()
+    return results
+
+
+def string_column(arr):
+    """A String column from a numpy array of ASCII str, built without a
+    Python list of millions of strings."""
+    from databend_tpu_torch.expression import Column
+    from databend_tpu_torch.expression.column import StringData
+    from databend_tpu_torch.types import String
+    fixed = np.ascontiguousarray(arr.astype("S"))
+    raw = np.frombuffer(fixed.tobytes(), np.uint8).reshape(
+        len(fixed), fixed.dtype.itemsize)
+    used = raw != 0              # NUL pads the fixed width, never a value
+    offsets = np.zeros(len(fixed) + 1, np.int64)
+    np.cumsum(used.sum(1), out=offsets[1:])
+    return Column(String, StringData(offsets, raw[used]))
+
+
+def load_lineitem(ctx, cols):
+    """``lineitem`` of benchmarks/tpch.py, typed as its ``load`` types it
+    (that loader imports the JAX package)."""
+    from benchmarks.tpch import DDL
+    from databend_tpu_torch.expression import Column, DataBlock
+    from databend_tpu_torch.types import Date, Float64, Int64
+    ctx.sql(DDL["lineitem"])
+    arrays = []
+    for name, vals in cols.items():
+        if name.endswith("date"):
+            arrays.append(Column(Date, vals.astype(np.int32)))
+        elif vals.dtype.kind == "f":
+            arrays.append(Column(Float64, vals.astype(np.float64)))
+        elif vals.dtype.kind in "iu":
+            arrays.append(Column(Int64, vals.astype(np.int64)))
+        else:
+            arrays.append(string_column(vals))
+    ctx.insert_block("lineitem", DataBlock(list(cols), arrays))
+
+
+def agg_truth(li):
+    """Q1's and Q6's rows from the generated arrays: integer sums in
+    cents, turned into floats as the route's finish turns its exact totals
+    (total / scale, an average then / count)."""
+    cents = np.rint(li["l_extendedprice"] * 100).astype(np.int64)
+    disc = np.rint(li["l_discount"] * 100).astype(np.int64)
+    tax = np.rint(li["l_tax"] * 100).astype(np.int64)
+    qty = li["l_quantity"].astype(np.int64)
+    ship = li["l_shipdate"]
+
+    def div(total, scale, count=None):
+        out = np.array([total], np.int64) / scale
+        return float(out[0] if count is None
+                     else (out / np.array([count], np.int64))[0])
+
+    q1 = []
+    keep = ship <= 10471                                  # 1998-09-02
+    for flag in ("A", "N", "R"):
+        for status in ("F", "O"):
+            m = keep & (li["l_returnflag"] == flag) \
+                & (li["l_linestatus"] == status)
+            c = int(m.sum())
+            if not c:
+                continue
+            price = cents[m]
+            q1.append((flag, status, div(qty[m].sum(), 1),
+                       div(price.sum(), 100),
+                       div((price * (100 - disc[m])).sum(), 10 ** 4),
+                       div((price * (100 - disc[m]) * (100 + tax[m])).sum(),
+                           10 ** 6),
+                       div(qty[m].sum(), 1, c), div(price.sum(), 100, c),
+                       div(disc[m].sum(), 100, c), c))
+    m = (ship >= 8766) & (ship < 9131) & (disc >= 5) & (disc <= 7) \
+        & (qty < 24)                                   # 1994-01-01, 1995-01-01
+    return q1, [(div((cents[m] * disc[m]).sum(), 10 ** 4),)]
+
+
+def same_rows(want, got):
+    """The reference route test's rule: integers and strings equal, floats
+    within rel 1e-12 (exact limb sums against host f64 sums)."""
+    if len(want) != len(got):
+        return False
+    for wr, gr in zip(want, got):
+        if len(wr) != len(gr):
+            return False
+        for a, b in zip(wr, gr):
+            if isinstance(a, float) and isinstance(b, float):
+                if abs(a - b) > max(1e-12 * abs(a), 1e-9):
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+def agg_statements():
+    """(name, engine, SQL): TPC-H Q1 (12 groups) and Q6 (one) on the mask
+    engine, a GROUP BY over 10,001 suppliers on the matmul engine, one over
+    200,001 parts on the sort engine (a [K, G] pull under 16 MB), and a
+    COUNT(DISTINCT) pair (4 groups, mask)."""
+    from benchmarks.tpch import QUERIES
+    return [
+        ("q1", "mask", QUERIES["q1"]),
+        ("q6", "mask", QUERIES["q6"]),
+        ("by_supplier", "matmul",
+         "SELECT l_suppkey, sum(l_extendedprice), sum(l_quantity), count(*) "
+         "FROM lineitem GROUP BY l_suppkey"),
+        ("by_part", "sort",
+         "SELECT l_partkey, sum(l_quantity), count(*) FROM lineitem "
+         "GROUP BY l_partkey"),
+        ("distinct_suppliers", "mask",
+         "SELECT l_returnflag, count(DISTINCT l_suppkey) FROM lineitem "
+         "GROUP BY l_returnflag")]
+
+
+def phase_agg(card, profile):
+    """The device scan-aggregate route on TPC-H SF1 lineitem
+    (benchmarks/tpch.py, 6,000,000 rows, seed 42): each statement of
+    ``agg_statements()`` on the host (route off), then routed: the first call
+    (builds and uploads the resident forms) and AGG_REPS warm calls. Each
+    routed run must count one routed query and no route error, take the
+    named engine, and return the host's rows; Q1 and Q6 also a numpy
+    computation in integer cents. Then Q1 once more with CHUNK_ROWS at
+    AGG_CHUNK_ROWS (4 chunks combined on the host).
+    Returns the grouped_sums launches of the statements and the kernel's
+    inputs of each statement's first routed call."""
+    import types as pytypes
+    import databend_tpu_torch as dt
+    from benchmarks.tpch import generate
+    from databend_tpu_torch.ops import grouped_sums as gs
+    from databend_tpu_torch.pipeline import device_scan_agg as dsa
+    from databend_tpu_torch.utils.metrics import METRICS
+
+    t0 = time.perf_counter()
+    li = generate(AGG_SF, seed=AGG_SEED)["lineitem"]
+    n = len(li["l_orderkey"])
+    q1_truth, q6_truth = agg_truth(li)
+    print(f"[agg] TPC-H sf {AGG_SF} lineitem: {n} rows + numpy Q1 / Q6 in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+
+    def counts():
+        snap = METRICS.snapshot()
+        return (snap.get("device_scan_agg_queries", 0),
+                snap.get("device_scan_agg_errors", 0))
+
+    captured, engines = {}, []
+    state = {"statement": None}
+    real_program = dsa._build_program
+
+    def program_spy(ir):
+        engines.append(ir[4])
+        return real_program(ir)
+
+    def sums_spy(gid, rows, groups):
+        captured.setdefault(state["statement"], (gid, rows, groups))
+        return gs.grouped_sums(gid, rows, groups)
+
+    def routed(sql):
+        before = counts()
+        rows = ctx.sql(sql).rows()
+        torch.cuda.synchronize()
+        after = counts()
+        check(after == (before[0] + 1, before[1]),
+              f"[agg] route counts {before} -> {after} for: {sql}")
+        return rows
+
+    with tempfile.TemporaryDirectory() as root:
+        ctx = dt.SessionContext(root)
+        real_gsums = dsa.gsums
+        dsa._build_program = program_spy
+        dsa.gsums = pytypes.SimpleNamespace(grouped_sums=sums_spy)
+        try:
+            t0 = time.perf_counter()
+            load_lineitem(ctx, li)
+            print(f"[agg] create + insert lineitem: "
+                  f"{time.perf_counter() - t0:.1f} s")
+            table = ctx.table("lineitem")
+            snap_id = table.read_snapshot().snapshot_id
+            results = {}
+            gs.grouped_sums.launches = 0
+            statements = agg_statements()
+            for name, engine, sql in statements:
+                state["statement"] = name
+                ctx.sql("SET enable_device_local_execution = 0")
+                t0 = time.perf_counter()
+                host = ctx.sql(sql).rows()
+                host_s = time.perf_counter() - t0
+                ctx.sql("SET enable_device_local_execution = 1")
+                engines.clear()
+                t0 = time.perf_counter()
+                first = routed(sql)
+                first_s = time.perf_counter() - t0
+                resident = dsa.get_table_columns(table, snap_id).nbytes
+                warm = []
+                for _ in range(AGG_REPS):
+                    t0 = time.perf_counter()
+                    again = routed(sql)
+                    warm.append(time.perf_counter() - t0)
+                    check(again == first, f"[agg] {name}: a warm call "
+                                          "differs from the first")
+                check(engines[:1] == [engine],
+                      f"[agg] {name}: engine {engines[:1]}, want {engine}")
+                check(same_rows(sorted(host), sorted(first)),
+                      f"[agg] {name}: routed rows differ from the host's: "
+                      f"{host[:3]} vs {first[:3]}")
+                if name == "q1":
+                    check(first == q1_truth, f"[agg] q1 differs from numpy: "
+                                             f"{first} vs {q1_truth}")
+                if name == "q6":
+                    check(first == q6_truth, f"[agg] q6 differs from numpy: "
+                                             f"{first} vs {q6_truth}")
+                results[name] = first
+                print(f"[agg] {name} ({engine}, {len(first)} rows): host "
+                      f"{host_s * 1e3:.1f} ms, first routed call "
+                      f"{first_s * 1e3:.1f} ms (resident forms "
+                      f"{resident / 2 ** 20:.1f} MiB), warm routed "
+                      f"{float(np.median(warm)) * 1e3:.3f} ms (median of "
+                      f"{AGG_REPS}; {min(warm) * 1e3:.3f}-"
+                      f"{max(warm) * 1e3:.3f}) [{card}]")
+            launches = gs.grouped_sums.launches
+            want = sum(AGG_REPS + 1 for _, e, _ in statements
+                       if e != "sort")
+            print(f"[agg] grouped_sums launches over the statements: "
+                  f"{launches} (one per routed mask / matmul / distinct "
+                  f"call: {want}) [{card}]")
+            check(launches == want, f"[agg] {launches} launches, want {want}")
+
+            # Q1 in AGG_CHUNK_ROWS chunks: new resident forms, chunk sums
+            # combined on the host
+            saved = dsa.CHUNK_ROWS
+            dsa._cache().clear()
+            dsa.CHUNK_ROWS = AGG_CHUNK_ROWS
+            try:
+                state["statement"] = "q1 chunked"
+                t0 = time.perf_counter()
+                chunked = routed(statements[0][2])
+                n_chunks = len(dsa.get_table_columns(table, snap_id)
+                               .cols["l_shipdate"]["codes"])
+                print(f"[agg] q1 in {n_chunks} chunks of {AGG_CHUNK_ROWS} "
+                      f"rows: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+                      f"rows equal: {chunked == results['q1']} [{card}]")
+                check(n_chunks == -(-n // AGG_CHUNK_ROWS),
+                      f"[agg] {n_chunks} chunks")
+                check(chunked == results["q1"],
+                      "[agg] the chunked q1 differs from the one-chunk q1")
+            finally:
+                dsa.CHUNK_ROWS = saved
+                dsa._cache().clear()
+            if profile:
+                for name, _, sql in statements:
+                    profile_call(f"[agg] {name} warm routed call", card,
+                                 lambda r, sql=sql: ctx.sql(sql).rows())
+            return launches, captured
+        finally:
+            dsa._build_program = real_program
+            dsa.gsums = real_gsums
+            ctx.close()
+
+
+def hold_grouped_sums_agg(card, captured):
+    """grouped_sums on the very inputs [agg] gave it (the first routed call
+    of each statement)."""
+    results = {}
+    for name, (gid, rows, groups) in captured.items():
+        k, n = rows.shape
+        results[name] = hold_grouped_sums(
+            card, f"[agg] {name}: n={n} K={k} G={groups}", gid, rows, groups)
+    return results
+
+
 def phase_suites(card):
     """The index sqllogictest suite through the port's entry point, on the
     card (no device override in its environment)."""
@@ -1178,6 +1546,9 @@ def check_standalone():
     check("databend_tpu_torch.index.hnsw.build" in mods
           and "databend_tpu_torch.index.hnsw.search" in mods,
           "the HNSW modules were not loaded")
+    check("databend_tpu_torch.pipeline.device_scan_agg" in mods
+          and "databend_tpu_torch.ops.grouped_sums" in mods,
+          "the scan-aggregate modules were not loaded")
     check("databend_tpu_torch._reference" not in mods,
           "databend_tpu_torch._reference is loaded")
     check(not leaked, f"reference modules loaded: {leaked}")
@@ -1302,6 +1673,7 @@ def main():
     build_kernels()
     kern = phase_kernels(card)
     imp = phase_impact_kernels(card)
+    gsk = phase_grouped_sums_kernel(card)
     if "--diagnose" in sys.argv[1:]:
         diagnose_flash(card)
     profile = "--profile" in sys.argv[1:]
@@ -1312,6 +1684,10 @@ def main():
                             "no time")
     phase_hnsw(card, profile)
     phase_cluster(card)
+    gs_launches, captured = phase_agg(card, profile)
+    check(gs_launches > 0, "the [agg] path launched grouped_sums no time")
+    gsk.update(hold_grouped_sums_agg(card, captured))
+    del captured
     phase_suites(card)
     check_standalone()
 
@@ -1335,6 +1711,16 @@ def main():
         "max_abs_err": max(v[0] for v in imp.values()), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None})
+    # the kernel on Q1's own inputs (mask engine, G = 12)
+    _, ms, plain_ms, bound_ms, bound_by, library_ms = gsk["q1"]
+    kernels.append({
+        "name": "grouped_sums", "route": "cuda",
+        "source": "databend_tpu_torch/csrc/grouped_sums.cu",
+        "replaces": "databend_tpu/pipeline/device_scan_agg.py:1033",
+        "launches": gs_launches,
+        "max_abs_err": max(v[0] for v in gsk.values()), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,7 @@ import databend_tpu.expression as jexpr
 import databend_tpu.types as jtypes
 from databend_tpu.service.prepared import _MatchServer as JaxMatch
 from databend_tpu.service.session import SessionContext as JaxContext
+from databend_tpu.utils import tracing as jtracing
 
 import databend_tpu_torch.expression as texpr
 import databend_tpu_torch.types as ttypes
@@ -25,6 +26,7 @@ from databend_tpu_torch import backend
 from databend_tpu_torch.index.inverted import device as tdev
 from databend_tpu_torch.service.prepared import _MatchServer as TorchMatch
 from databend_tpu_torch.service.session import SessionContext as TorchContext
+from databend_tpu_torch.utils import tracing as ttracing
 
 WORDS = ["weather", "news", "google", "maps", "cat", "videos", "python",
          "flights", "hotels", "music"]
@@ -36,6 +38,17 @@ def _torch_on_cpu():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv(backend.DEVICE_ENV, "cpu")
         yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drain_span_rings():
+    """Statements on either SessionContext record spans in their package's
+    process-wide ring; empty both after the module, so that a later test
+    file on this worker (tests/test_explain_profile.py) reads only its own
+    spans."""
+    yield
+    jtracing.RECORDER.drain()
+    ttracing.RECORDER.drain()
 
 
 def _rows(n, seed):

@@ -61,12 +61,22 @@ with tempfile.TemporaryDirectory() as root:
     fps = ctx.prepare("SELECT id FROM t WHERE id < ? "
                       "ORDER BY cosine_distance(emb, ?) LIMIT 10")
     assert fps.execute_batch([(100, x[5])], exact=False)[0].rows()[0] == (5,)
-    # aggregates consult the relational device routes, which the port declines
-    got = ctx.sql("SELECT id % 3 AS g, count(*), sum(id) FROM t "
-                  "WHERE id < 4000 GROUP BY g ORDER BY g").rows()
+    # aggregates consult the relational device routes; below the size gate
+    # (device_scan_agg_min_rows) the host answers
+    from databend_tpu_torch.utils.metrics import METRICS
+    agg = ("SELECT id % 3 AS g, count(*), sum(id) FROM t "
+           "WHERE id < 4000 GROUP BY g ORDER BY g")
+    got = ctx.sql(agg).rows()
     ids = np.arange(4000)
     assert got == [(g, int((ids % 3 == g).sum()), int(ids[ids % 3 == g].sum()))
                    for g in range(3)], got
+    # with the gate at 0 the scan-aggregate route answers from the device
+    routed = METRICS.snapshot().get("device_scan_agg_queries", 0)
+    ctx.sql("SET device_scan_agg_min_rows = 0")
+    assert ctx.sql(agg).rows() == got
+    assert METRICS.snapshot()["device_scan_agg_queries"] == routed + 1
+    assert "databend_tpu_torch.ops.grouped_sums" in sys.modules
+    ctx.sql("SET device_scan_agg_min_rows = 300000")
     got = ctx.sql("SELECT id % 7 AS g, count(*) AS c FROM t GROUP BY g "
                   "HAVING count(*) > 714 ORDER BY c DESC, g LIMIT 2").rows()
     assert got == [(0, 715), (1, 715)], got

@@ -42,7 +42,9 @@ PORT_OWN = {
     "parallel/fragmenter.py": "the host halves only; execute declines "
                               "without a mesh (item 11b)",
     "parallel/exchange.py": "names only, each raises if called (item 11b)",
-    "pipeline/device_scan_agg.py": "declines to the host (ROADMAP item 12)",
+    "pipeline/device_scan_agg.py": "resident columns and limb sums on torch, "
+                                   "the grouped sums through the CUDA kernel; "
+                                   "device errors propagate, fusion declines",
     "pipeline/device_join_agg.py": "declines to the host (ROADMAP item 12)",
     "pipeline/device_fusion.py": "the Fusion request type only (item 12)",
     "pipeline/executor.py": "_brute_force_scores on torch",
