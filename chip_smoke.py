@@ -27,6 +27,14 @@ Phases (any failure exits non-zero and prints no result line):
      fused with a D = 128 distance term (cosine and l2), (L = 8, b = 8),
      (L = 64, b = 128, m = 8), (L = 512, b = 8, m = 4), b = 1, and a block
      that ends in 1,000 pad docs;
+     impact_bm25_topk, the selecting entry point of the same source (ids
+     equal and values bit-equal to its plain version at k = 1, 10 and its
+     largest k; one read of the layout, the query operands and the
+     distance term plus the [b, k] result at 3.35 TB/s, or the same
+     compare-selects; beside it the pair it replaces, impact_bm25_scores
+     and the tie-rule top-k): at the same nine shapes, the serving shape
+     300 times over, a block where every doc has the same terms, and AND
+     queries with groups no doc matches;
      grouped_sums (bit-equal, beside one index_add_ into int32, the library
      call; one read of ids and value rows and one write of the sums at
      3.35 TB/s): n of 6M and 8M, K of 6 and 20 value rows, G of 1, 12, 64,
@@ -55,8 +63,13 @@ Phases (any failure exits non-zero and prints no result line):
      and the fused ``0.04 * score() - cosine_distance(emb, ?)`` statement at
      B = 128: each checked against the generic literal path (rows, scores)
      and, for the text statement, a numpy BM25 computed from the texts,
-     then timed (median of 5 batches of fresh texts after a warm-up); the
-     scoring kernel must have been launched once per block and batch;
+     then timed (median of 5 batches of fresh texts after a warm-up);
+     impact_bm25_topk must have been launched once per block and batch,
+     impact_bm25_scores never; the device memory a B = 128 text call
+     takes above what was resident must stay under one [128, 262,144] f32
+     block. Then a prepared ``match()`` with a LIMIT one above the
+     selecting kernel's largest k, at B = 8: impact_bm25_scores launched
+     once per block, rows and scores equal to the generic path;
   7. [hnsw]: first the port's build and search on the card against the same
      code on CPU tensors (5,000 integer rows with duplicates, and a corpus
      of equal rows: links and ids equal, so the card's sorts, minima and
@@ -370,16 +383,18 @@ def impact_operands(g, n_pad, n_docs, slots, b, m, and_mode, dim=0):
             pack_query_terms(qterms, idf, qgroup), need), dist
 
 
-def impact_bound(ops, dist):
+def impact_bound(ops, dist, out_bytes=None):
     """(ms, "bytes" or "operations"): one read of the layout, the query
-    operands and the distance term plus one write of the [b, n_pad] f32
-    scores at the memory rate, or one compare-select per (real doc slot, real
-    query term) of this run's data at the int32 instruction rate, whichever is
-    larger."""
+    operands and the distance term plus one write of the output (the
+    [b, n_pad] f32 scores, or ``out_bytes``) at the memory rate, or one
+    compare-select per (real doc slot, real query term) of this run's data at
+    the int32 instruction rate, whichever is larger."""
     term_ids, qpack = ops[0], ops[2]
     n_pad = term_ids.shape[0]
-    nbytes = sum(t.numel() * t.element_size() for t in ops) \
-        + qpack.shape[0] * n_pad * 4 * (2 if dist is not None else 1)
+    if out_bytes is None:
+        out_bytes = qpack.shape[0] * n_pad * 4
+    nbytes = sum(t.numel() * t.element_size() for t in ops) + out_bytes \
+        + (dist.numel() * 4 if dist is not None else 0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     real_slots = int((term_ids >= 0).sum())
     real_terms = int((qpack[..., 0] >= 0).sum())
@@ -421,10 +436,72 @@ def hold_impact_kernel(card, what, ops, dist, w_s=1.0, w_d=0.0):
     return err, ms, plain_ms, bound_ms, bound_by
 
 
+def same_bits(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def hold_impact_topk(card, what, ops, dist, w_s=1.0, w_d=0.0, repeats=0,
+                     timed=True):
+    """impact_bm25_topk against its plain version on the same tensors at
+    k = 1, 10 and MAX_K: ids equal and values bit-equal. At k = 10 the
+    kernel, the plain version and the pair it replaces (impact_bm25_scores,
+    then the tie-rule top-k) are timed beside the bound; ``repeats`` more
+    launches must give the first answer's bits.
+    Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by, pair_ms)."""
+    from databend_tpu_torch.ops.impact_bm25 import (
+        MAX_K, _impact_bm25_topk_plain, impact_bm25_scores, impact_bm25_topk)
+    from databend_tpu_torch.ops.topk import topk_largest_lowest_index
+    b = ops[2].shape[0]
+    for k in (1, K, MAX_K):
+        before = impact_bm25_topk.launches
+        vals, ids = impact_bm25_topk(*ops, k, dist, w_s, w_d)
+        torch.cuda.synchronize()
+        check(impact_bm25_topk.launches == before + 1,
+              f"topk {what} k={k}: no launch")
+        want_v, want_i = _impact_bm25_topk_plain(*ops, k, dist, w_s, w_d)
+        check(vals.shape == (b, k) and torch.equal(ids, want_i),
+              f"topk {what} k={k}: ids differ from the plain version")
+        check(same_bits(vals, want_v),
+              f"topk {what} k={k}: values differ from the plain version")
+        if k == K:
+            first = (vals, ids)
+        del vals, ids, want_v, want_i
+    for _ in range(repeats):
+        vals, ids = impact_bm25_topk(*ops, K, dist, w_s, w_d)
+        check(torch.equal(ids, first[1]) and same_bits(vals, first[0]),
+              f"topk {what}: a repeated launch differs")
+    matched = torch.isfinite(first[0]).float().mean().item()
+    del first
+    if not timed:
+        print(f"[kernel] impact_bm25_topk {what}: ids and values bit-equal "
+              f"to the plain version at k = 1, {K}, {MAX_K} "
+              f"({100 * matched:.1f}% of the top {K} matched) [{card}]")
+        return None
+    ms = cuda_ms(lambda: impact_bm25_topk(*ops, K, dist, w_s, w_d))
+    plain_ms = cuda_ms(
+        lambda: _impact_bm25_topk_plain(*ops, K, dist, w_s, w_d), reps=2)
+    pair_ms = cuda_ms(lambda: topk_largest_lowest_index(
+        impact_bm25_scores(*ops, dist=dist, w_s=w_s, w_d=w_d), K))
+    bound_ms, bound_by = impact_bound(ops, dist, out_bytes=b * K * 12)
+    rep = f", {repeats} repeats equal" if repeats else ""
+    print(f"[kernel] impact_bm25_topk {what}: ids and values bit-equal to the "
+          f"plain version at k = 1, {K}, {MAX_K}{rep} ({100 * matched:.1f}% "
+          f"of the top {K} matched); k = {K}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, the scores kernel + tie-rule top-k {pair_ms:.4f}"
+          f" ms, bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.0f}"
+          f"% reached) [{card}]")
+    return 0.0, ms, plain_ms, bound_ms, bound_by, pair_ms
+
+
 def phase_impact_kernels(card):
+    """Both entry points of csrc/impact_bm25_scores.cu at nine shapes;
+    the selecting one also on a block where every doc ties and on AND
+    queries with groups no doc can match.
+    Returns ({shape: scores result}, {shape: topk result})."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     n = BLOCK_ROWS
-    results = {}
+    results, topk = {}, {}
     # (name, n_docs, L, b, m, AND?, fused metric or None)
     shapes = [("OR", n, 8, 128, 4, False, None),
               ("AND", n, 8, 128, 4, True, None),
@@ -447,9 +524,31 @@ def phase_impact_kernels(card):
         what = f"{name} n_pad={n} n_docs={n_docs} L={slots} b={b} m={m}"
         results[(name, slots, b, m)] = hold_impact_kernel(
             card, what, ops, dist, w_s, w_d)
+        # the serving shape once more, 300 times over
+        topk[(name, slots, b, m)] = hold_impact_topk(
+            card, what, ops, dist, w_s, w_d,
+            repeats=300 if (name, slots, b) == ("OR", 8, 128) else 0)
         del ops, dist
         torch.cuda.empty_cache()
-    return results
+    # every doc the same terms and saturations: one score class of 262,144
+    ops, _ = impact_operands(g, n, n, 8, 128, 4, False)
+    term_ids, sat, qpack, need = ops
+    term_ids = term_ids[:1].expand(n, -1).contiguous()
+    sat = sat[:1].expand(n, -1).contiguous()
+    qpack = qpack.clone()
+    qpack[::2, 0, 0] = term_ids[0, 0]
+    hold_impact_topk(card, f"every doc ties n_pad={n} L=8 b=128 m=4",
+                     (term_ids, sat, qpack, need), None, timed=False)
+    # AND with more groups than a query has terms: no doc of those matches
+    ops, _ = impact_operands(g, n, n, 8, 128, 4, True)
+    need = ops[3].clone()
+    need[::2] = 4.0
+    hold_impact_topk(card, f"AND, unmatched groups in half the queries "
+                           f"n_pad={n} L=8 b=128 m=4",
+                     (*ops[:3], need), None, timed=False)
+    del ops, term_ids, sat, qpack, need
+    torch.cuda.empty_cache()
+    return results, topk
 
 
 # --diagnose: text patches of csrc/flash_group_minima.cu, each (old, new)
@@ -701,11 +800,14 @@ def phase_match(card, profile):
     """BM25 text serving and fused text+vector serving at the reference's
     product scale (benchmarks/hybrid_serving_bench.py), through
     SessionContext.prepare / execute / execute_batch.
-    Returns the kernel's launch count over the phase."""
+    Returns the launch counts of impact_bm25_topk over the phase's served
+    batches at k = 10 and of impact_bm25_scores over the batches above its
+    largest k."""
     import databend_tpu_torch as dt
     from databend_tpu_torch.expression import Column, DataBlock
     from databend_tpu_torch.index.inverted.device import ImpactBM25
-    from databend_tpu_torch.ops.impact_bm25 import impact_bm25_scores
+    from databend_tpu_torch.ops.impact_bm25 import (
+        MAX_K, impact_bm25_scores, impact_bm25_topk)
     from databend_tpu_torch.types import String, VectorType
 
     n, d = MATCH_ROWS, DIM
@@ -767,6 +869,7 @@ def phase_match(card, profile):
                 check(len(got) == K, f"{what}: {len(got)} rows")
 
             impact_bm25_scores.launches = 0
+            impact_bm25_topk.launches = 0
             pm = ctx.prepare(text_sql.format(t="?"))
             t0 = time.perf_counter()
             first = pm.execute(pool[0])
@@ -834,8 +937,22 @@ def phase_match(card, profile):
                 timed_batches(
                     pm, lambda r, b=bsz: pool[(r * b) % 896:(r * b) % 896 + b],
                     bsz, f"prepared match() B={bsz}", (0, bsz - 1))
+            # the device memory a B = 128 text call takes above what was
+            # resident before it: no [b, n_pad] score block any more
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             res = pm.execute_batch(pool[:128])
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - resident
             batches += 1
+            block_bytes = 128 * BLOCK_ROWS * 4
+            print(f"[match] prepared match() B=128: peak device memory "
+                  f"{peak} bytes ({peak / 2**20:.3f} MiB) above the "
+                  f"{resident} resident; one [128, {BLOCK_ROWS}] f32 score "
+                  f"block is {block_bytes} bytes [{card}]")
+            check(peak < block_bytes,
+                  "a text call allocates a score block's worth of memory")
             o_rows, o_scores = bm25_oracle(words, n_words, pool[64], K)
             check([r[0] for r in res[64].rows()] == o_rows.tolist()
                   and np.allclose([r[1] for r in res[64].rows()], o_scores,
@@ -850,12 +967,41 @@ def phase_match(card, profile):
                 (0, 31))
             check(pf._match.shape.fused and len(pf._match._embs) == n_blocks
                   and pf._match._embs[0].is_cuda, "fused state not on the card")
-            launches = impact_bm25_scores.launches
+            launches = impact_bm25_topk.launches
             check(launches == n_blocks * batches,
-                  f"impact_bm25_scores launched {launches} times over "
+                  f"impact_bm25_topk launched {launches} times over "
                   f"{batches} batches of {n_blocks} blocks")
-            print(f"[match] impact_bm25_scores launches: {launches} = "
-                  f"{n_blocks} blocks x {batches} served batches")
+            check(impact_bm25_scores.launches == 0,
+                  f"impact_bm25_scores launched at k = {K}")
+            print(f"[match] impact_bm25_topk launches: {launches} = "
+                  f"{n_blocks} blocks x {batches} served batches; "
+                  f"impact_bm25_scores: 0")
+
+            # above the selecting kernel's largest k: the scores kernel and
+            # the tie-rule top-k serve the statement
+            wide_sql = ("SELECT id, score() FROM hy WHERE match(body, {t}) "
+                        f"ORDER BY score() DESC LIMIT {MAX_K + 1}")
+            pw = ctx.prepare(wide_sql.format(t="?"))
+            impact_bm25_scores.launches = 0
+            impact_bm25_topk.launches = 0
+            wide = pw.execute_batch(pool[:8])
+            scores_launches = impact_bm25_scores.launches
+            check(scores_launches == n_blocks and impact_bm25_topk.launches
+                  == 0, f"LIMIT {MAX_K + 1}: launches scores "
+                  f"{scores_launches}, topk {impact_bm25_topk.launches}")
+            for i in (0, 7):
+                want = ctx.sql(wide_sql.format(t=f"'{pool[i]}'")).rows()
+                got = wide[i].rows()
+                check([r[0] for r in got] == [r[0] for r in want]
+                      and len(got) == MAX_K + 1 and np.allclose(
+                          [r[1] for r in got], [r[1] for r in want],
+                          rtol=1e-4),
+                      f"LIMIT {MAX_K + 1} [{i}]: differs from the generic "
+                      "path")
+            print(f"[match] prepared match() LIMIT {MAX_K + 1} B=8: "
+                  f"impact_bm25_scores launches {scores_launches} = "
+                  f"{n_blocks} blocks x 1 batch, impact_bm25_topk 0; rows "
+                  f"and scores equal the generic path at (0, 7) [{card}]")
 
             for what, sql in (("match()", text_sql.format(t="'{t}'")),
                               ("fused", None)):
@@ -876,7 +1022,7 @@ def phase_match(card, profile):
                                  pool[128 * r:128 * (r + 1)]))
                 profile_call("fused B=128", card,
                              lambda r: pf.execute_batch(fsets))
-            return launches
+            return launches, scores_launches
         finally:
             ctx.close()
 
@@ -1672,16 +1818,18 @@ def main():
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     build_kernels()
     kern = phase_kernels(card)
-    imp = phase_impact_kernels(card)
+    imp, topk = phase_impact_kernels(card)
     gsk = phase_grouped_sums_kernel(card)
     if "--diagnose" in sys.argv[1:]:
         diagnose_flash(card)
     profile = "--profile" in sys.argv[1:]
     launches = phase_main_path(card, profile)
     check(launches > 0, "the main path launched flash_group_minima no time")
-    imp_launches = phase_match(card, profile)
-    check(imp_launches > 0, "the [match] path launched impact_bm25_scores "
-                            "no time")
+    topk_launches, imp_launches = phase_match(card, profile)
+    check(topk_launches > 0, "the [match] path launched impact_bm25_topk "
+                             "no time")
+    check(imp_launches > 0, "the [match] path above the largest k launched "
+                            "impact_bm25_scores no time")
     phase_hnsw(card, profile)
     phase_cluster(card)
     gs_launches, captured = phase_agg(card, profile)
@@ -1711,6 +1859,17 @@ def main():
         "max_abs_err": max(v[0] for v in imp.values()), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None})
+    # the same serving shape, k = 10; no single PyTorch call selects the
+    # tie-rule top-k of BM25 scores: the yardstick is the pair it replaces
+    _, ms, plain_ms, bound_ms, bound_by, pair_ms = topk[("OR", 8, 128, 4)]
+    kernels.append({
+        "name": "impact_bm25_topk", "route": "cuda",
+        "source": "databend_tpu_torch/csrc/impact_bm25_scores.cu",
+        "replaces": "databend_tpu/index/inverted/device.py:424",
+        "launches": topk_launches,
+        "max_abs_err": max(v[0] for v in topk.values()), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": pair_ms})
     # the kernel on Q1's own inputs (mask engine, G = 12)
     _, ms, plain_ms, bound_ms, bound_by, library_ms = gsk["q1"]
     kernels.append({

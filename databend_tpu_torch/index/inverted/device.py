@@ -13,9 +13,10 @@ on the card, uploaded once per block like the vector columns, in two layouts:
   the (doc, group, contribution) triples and reducing runs with a segmented
   Hillis-Steele scan. Shapes are bucketed as in the reference (term count and
   posting length), which bounds the padding work.
-* ``ImpactBM25``: the dense doc-major layout for batched serving. Scoring is
-  the hand-written kernel ``ops.impact_bm25.impact_bm25_scores`` (its plain
-  version on CPU tensors), then one top-k per query.
+* ``ImpactBM25``: the dense doc-major layout for batched serving. Scoring
+  and the top-k per query are one hand-written kernel,
+  ``ops.impact_bm25.impact_bm25_topk`` (its plain version on CPU tensors):
+  the ``[b, n_pad]`` score block is never written.
 
 The reference's jitted programs are plain functions on tensors here. Equal
 scores rank by ascending row id, inside the top k and at its boundary, as
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from ... import backend
-from ...ops.impact_bm25 import impact_bm25_scores, pack_query_terms
+from ...ops.impact_bm25 import impact_bm25_topk, pack_query_terms
 from ...ops.topk import topk_largest_lowest_index
 
 K1 = 1.2
@@ -455,16 +456,16 @@ class ImpactBM25:
 
     def dispatch_top_k_batch(self, queries: "List[List[List[int]]]",
                              k: int, operator: str = "OR"):
-        """Queue the dense batch scoring and its top-k WITHOUT syncing;
+        """Queue the batch's scoring and top-k (one kernel) WITHOUT syncing;
         returns an opaque handle for :meth:`collect`. Callers serving
         multiple blocks dispatch them all, then collect: the card works on
         one block while the host packs the next."""
         qterms, idf, qgroup, need, drop, _, _, _ = \
             self._pack_queries(queries, operator)
-        dense = impact_bm25_scores(
+        dev = impact_bm25_topk(
             self._term_ids, self._sat,
-            *_upload(pack_query_terms(qterms, idf, qgroup), need))
-        dev = topk_largest_lowest_index(dense, min(k, max(self.n_docs, 1)))
+            *_upload(pack_query_terms(qterms, idf, qgroup), need),
+            min(k, max(self.n_docs, 1)))
         return (dev, drop, len(queries))
 
     def collect(self, handle) -> "List[Tuple[np.ndarray, np.ndarray]]":
@@ -494,7 +495,7 @@ class ImpactBM25:
                                    w_dist: float, metric: str):
         """Queue the fused text+vector ranking without syncing (see
         :meth:`dispatch_top_k_batch`): the distance term is a matrix product
-        outside the kernel, and the kernel writes
+        outside the kernel, and the kernel ranks
         ``w_score * bm25 + w_dist * dist`` on the text-matched docs."""
         b_real = len(queries)
         qterms, idf, qgroup, need, drop, b, _, _ = \
@@ -503,11 +504,11 @@ class ImpactBM25:
         Qp[:b_real] = Q
         qpack, need_d, Qd = _upload(pack_query_terms(qterms, idf, qgroup),
                                     need, Qp)
-        dense = impact_bm25_scores(
+        dev = impact_bm25_topk(
             self._term_ids, self._sat, qpack, need_d,
+            min(k, max(self.n_docs, 1)),
             dist=_vector_distance(emb, Qd, metric),
             w_s=float(np.float32(w_score)), w_d=float(np.float32(w_dist)))
-        dev = topk_largest_lowest_index(dense, min(k, max(self.n_docs, 1)))
         return (dev, drop, b_real)
 
     def fused_top_k_batch(self, queries: "List[List[List[int]]]", k: int,

@@ -31,6 +31,15 @@ one term column at a time and tiled over docs so that no intermediate passes
 ``PLAIN_BYTES``. Both add the terms in index order without fused
 multiply-adds, so docs with equal terms and saturations get bit-equal scores
 (the tie rule of the top-k after it depends on that).
+
+``impact_bm25_topk`` is the function the serving path calls: the same scores
+and their ``k`` largest per query, in ``jax.lax.top_k``'s order
+(``ops.topk.topk_largest_lowest_index``), which is what the reference's
+programs return. On a CUDA tensor it launches the selecting entry point of
+the same source, which never writes the ``[b, n_pad]`` block; its plain
+version ``_impact_bm25_topk_plain`` is the plain scores followed by that
+top-k. Above ``MAX_K`` it runs ``impact_bm25_scores`` and the top-k instead
+(a shape rule: each launch counts on its own wrapper).
 """
 
 from __future__ import annotations
@@ -43,9 +52,11 @@ import numpy as np
 import torch
 
 from . import _cuda
+from .topk import topk_largest_lowest_index
 
 PLAIN_BYTES = 1 << 28     # the plain version's largest intermediate
 MAX_SLOTS = 512           # the kernel keeps 32 docs x L slots in shared memory
+MAX_K = 128               # the selecting kernel's largest k (its MAX_K)
 NEG_INF = float("-inf")
 
 
@@ -125,6 +136,35 @@ def _impact_bm25_scores_plain(term_ids: torch.Tensor, sat: torch.Tensor,
     return out
 
 
+def _check_kernel_operands(what, term_ids, sat, qpack, need, dist):
+    """What the CUDA entry points take beyond ``_check_inputs``."""
+    if term_ids.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for {term_ids.device}")
+    n_pad, slots = term_ids.shape
+    b, m = qpack.shape[:2]
+    if slots % 8 or not 8 <= slots <= MAX_SLOTS or b < 1 or m < 1 or n_pad < 1:
+        raise ValueError(f"{what}: the CUDA kernel needs L % 8 == "
+                         f"0, 8 <= L <= {MAX_SLOTS}, b, m, n_pad >= 1 "
+                         f"(L={slots}, b={b}, m={m}, n_pad={n_pad})")
+    operands = {"term_ids": term_ids, "sat": sat, "qpack": qpack,
+                "need": need}
+    if dist is not None:
+        operands["dist"] = dist
+    for name, t in operands.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    for name in ("term_ids", "sat", "qpack"):        # read as 16-byte vectors
+        if operands[name].data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start at a "
+                             "multiple of 16 bytes")
+
+
+def _raise_on(lib, what, err):
+    if err:
+        msg = lib.impact_bm25_scores_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
+
+
 def impact_bm25_scores(term_ids: torch.Tensor, sat: torch.Tensor,
                        qpack: torch.Tensor, need: torch.Tensor,
                        dist: Optional[torch.Tensor] = None,
@@ -139,25 +179,10 @@ def impact_bm25_scores(term_ids: torch.Tensor, sat: torch.Tensor,
     if term_ids.device.type == "cpu":
         return _impact_bm25_scores_plain(term_ids, sat, qpack, need, dist,
                                          w_s, w_d)
-    if term_ids.device.type != "cuda":
-        raise ValueError(f"impact_bm25_scores: no kernel for {term_ids.device}")
+    _check_kernel_operands("impact_bm25_scores", term_ids, sat, qpack, need,
+                           dist)
     n_pad, slots = term_ids.shape
     b, m = qpack.shape[:2]
-    if slots % 8 or not 8 <= slots <= MAX_SLOTS or b < 1 or m < 1 or n_pad < 1:
-        raise ValueError(f"impact_bm25_scores: the CUDA kernel needs L % 8 == "
-                         f"0, 8 <= L <= {MAX_SLOTS}, b, m, n_pad >= 1 "
-                         f"(L={slots}, b={b}, m={m}, n_pad={n_pad})")
-    operands = {"term_ids": term_ids, "sat": sat, "qpack": qpack,
-                "need": need}
-    if dist is not None:
-        operands["dist"] = dist
-    for name, t in operands.items():
-        if not t.is_contiguous():
-            raise ValueError(f"impact_bm25_scores: {name} must be contiguous")
-    for name in ("term_ids", "sat", "qpack"):        # read as 16-byte vectors
-        if operands[name].data_ptr() % 16:
-            raise ValueError(f"impact_bm25_scores: {name} must start at a "
-                             "multiple of 16 bytes")
     lib = _launcher()
     out = torch.empty((b, n_pad), dtype=torch.float32, device=term_ids.device)
     with torch.cuda.device(term_ids.device):
@@ -166,27 +191,93 @@ def impact_bm25_scores(term_ids: torch.Tensor, sat: torch.Tensor,
             term_ids.data_ptr(), sat.data_ptr(), qpack.data_ptr(),
             need.data_ptr(), dist.data_ptr() if dist is not None else None,
             float(w_s), float(w_d), out.data_ptr(), n_pad, slots, b, m, stream)
-    if err:
-        msg = lib.impact_bm25_scores_error_string(err).decode()
-        raise RuntimeError(f"impact_bm25_scores launch failed: {msg} ({err})")
+    _raise_on(lib, "impact_bm25_scores", err)
     impact_bm25_scores.launches += 1
     return out
 
 
 impact_bm25_scores.launches = 0
 
+
+def _impact_bm25_topk_plain(term_ids: torch.Tensor, sat: torch.Tensor,
+                            qpack: torch.Tensor, need: torch.Tensor, k: int,
+                            dist: Optional[torch.Tensor] = None,
+                            w_s: float = 1.0, w_d: float = 0.0):
+    """Plain PyTorch version of ``impact_bm25_topk``: the plain scores, then
+    the tie-rule top-k."""
+    return topk_largest_lowest_index(
+        _impact_bm25_scores_plain(term_ids, sat, qpack, need, dist, w_s, w_d),
+        k)
+
+
+def impact_bm25_topk(term_ids: torch.Tensor, sat: torch.Tensor,
+                     qpack: torch.Tensor, need: torch.Tensor, k: int,
+                     dist: Optional[torch.Tensor] = None, w_s: float = 1.0,
+                     w_d: float = 0.0):
+    """The ``k`` largest scores per query and their docs -> (vals ``[b, k]``
+    f32, ids ``[b, k]`` int64), in ``jax.lax.top_k``'s order; operands as
+    :func:`impact_bm25_scores`, ``1 <= k <= n_pad``. Above ``MAX_K`` the
+    scores and the tie-rule top-k run apart."""
+    _check_inputs(term_ids, sat, qpack, need, dist)
+    n_pad, slots = term_ids.shape
+    if not 1 <= k <= n_pad:
+        raise ValueError(f"impact_bm25_topk: want 1 <= k <= n_pad, got k={k}"
+                         f", n_pad={n_pad}")
+    if k > MAX_K:
+        return topk_largest_lowest_index(
+            impact_bm25_scores(term_ids, sat, qpack, need, dist, w_s, w_d), k)
+    if term_ids.device.type == "cpu":
+        return _impact_bm25_topk_plain(term_ids, sat, qpack, need, k, dist,
+                                       w_s, w_d)
+    _check_kernel_operands("impact_bm25_topk", term_ids, sat, qpack, need,
+                           dist)
+    b, m = qpack.shape[:2]
+    lib = _launcher()
+    dev = term_ids.device
+    words = lib.impact_bm25_topk_workspace(n_pad, slots, b, k)
+    _raise_on(lib, "impact_bm25_topk", words if words < 0 else 0)
+    part = torch.empty(words, dtype=torch.int64, device=dev)
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((b, k), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.impact_bm25_topk_launch(
+            term_ids.data_ptr(), sat.data_ptr(), qpack.data_ptr(),
+            need.data_ptr(), dist.data_ptr() if dist is not None else None,
+            float(w_s), float(w_d), part.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), n_pad, slots, b, m, k, stream)
+    _raise_on(lib, "impact_bm25_topk", err)
+    impact_bm25_topk.launches += 1
+    return vals, ids
+
+
+impact_bm25_topk.launches = 0
+
 # the C interface of csrc/impact_bm25_scores.cu: term_ids, sat, qpack, need,
 # dist (or NULL); w_s, w_d; out; n_pad, L, b, m; stream
 _LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 \
     + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# impact_bm25_topk_launch: the same operands; w_s, w_d; part, vals, ids;
+# n_pad, L, b, m, k; stream
+_TOPK_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 \
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 @functools.cache
 def _launcher() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its C signatures."""
+    """The kernels' library, built at first use, with its C signatures."""
     lib = _cuda.load("impact_bm25_scores")
     lib.impact_bm25_scores_launch.argtypes = _LAUNCH_ARGTYPES
     lib.impact_bm25_scores_launch.restype = ctypes.c_int
+    lib.impact_bm25_topk_launch.argtypes = _TOPK_ARGTYPES
+    lib.impact_bm25_topk_launch.restype = ctypes.c_int
+    lib.impact_bm25_topk_workspace.argtypes = [ctypes.c_int] * 4
+    lib.impact_bm25_topk_workspace.restype = ctypes.c_longlong
+    lib.impact_bm25_topk_max_k.argtypes = []
+    lib.impact_bm25_topk_max_k.restype = ctypes.c_int
     lib.impact_bm25_scores_error_string.argtypes = [ctypes.c_int]
     lib.impact_bm25_scores_error_string.restype = ctypes.c_char_p
+    if lib.impact_bm25_topk_max_k() != MAX_K:
+        raise RuntimeError("csrc/impact_bm25_scores.cu and ops/impact_bm25.py "
+                           "disagree on MAX_K")
     return lib

@@ -41,36 +41,51 @@ def _stable_order(key: torch.Tensor, descending: bool, *rows: torch.Tensor):
     return [torch.gather(r, 1, order) for r in rows]
 
 
+def _order_key(values: torch.Tensor) -> torch.Tensor:
+    """The int32 image of float32 ``values`` that keeps their total order:
+    -0.0 below +0.0, -inf below every finite value (no NaN)."""
+    if values.dtype != torch.float32:
+        raise TypeError(f"want float32 values, got {values.dtype}")
+    bits = values.view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
 def topk_largest_lowest_index(values: torch.Tensor, k: int
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Largest-k per row of ``values [B, N]`` (no NaN) -> (values, indices)
-    ``[B, k]`` in ``jax.lax.top_k``'s order: by value descending and, among
-    equal values, by index ascending, and of the entries equal to the k-th
-    value the ones with the lowest indices are kept. ``torch.topk`` promises
-    neither, and BM25 over short texts ties by the thousand.
+    """Largest-k per row of float32 ``values [B, N]`` (no NaN) -> (values,
+    indices) ``[B, k]`` in ``jax.lax.top_k``'s order: by the total order of
+    float32 descending (-0.0 ranks below +0.0) and, among equal values, by
+    index ascending, and of the entries equal to the k-th value the ones with
+    the lowest indices are kept. ``torch.topk`` promises neither, and BM25
+    over short texts ties by the thousand.
 
-    One ``torch.topk`` finds the k-th value; every entry above it is in that
-    result whatever torch chose. A second ``torch.topk``, over ``N - index``
-    of the entries equal to the k-th value (distinct keys, so nothing is left
-    to choice), finds their lowest indices. The ``[B, 2k]`` candidates are
-    then ordered with stable sorts. No host synchronisation."""
+    The selection runs on the order-preserving int32 image of the values
+    (``_order_key``), where the two zeros differ. One ``torch.topk`` finds
+    the k-th key; every entry above it is in that result whatever torch
+    chose. A second ``torch.topk``, over ``N - index`` of the entries equal
+    to the k-th key (distinct keys, so nothing is left to choice), finds
+    their lowest indices. The ``[B, 2k]`` candidates are then ordered with
+    stable sorts, and the values gathered from the input. No host
+    synchronisation."""
     n = values.shape[1]
-    vals, idx = torch.topk(values, k, dim=1)
-    kth = vals[:, -1:]
+    keys = _order_key(values)
+    top, idx = torch.topk(keys, k, dim=1)
+    kth = top[:, -1:]
     from_end = torch.arange(n, 0, -1, dtype=torch.int32, device=values.device)
-    key = torch.where(values == kth, from_end, 0)
-    tied_idx = (n - torch.topk(key, k, dim=1).values).to(idx.dtype)
-    above = vals > kth
+    tied = torch.where(keys == kth, from_end, 0)
+    tied_idx = (n - torch.topk(tied, k, dim=1).values).to(idx.dtype)
+    above = top > kth
     room = k - above.sum(1, keepdim=True)     # >= 1: the k-th entry itself
     tied_ok = torch.arange(k, device=values.device)[None, :] < room
     c_idx = torch.cat([idx, tied_idx], 1)
-    c_val = torch.cat([vals, kth.expand(-1, k)], 1)
+    c_key = torch.cat([top, kth.expand(-1, k)], 1)
     c_ok = torch.cat([above, tied_ok], 1).to(torch.int8)
     # least significant key first: index, then value, then validity
-    c_idx, c_val, c_ok = _stable_order(c_idx, False, c_idx, c_val, c_ok)
-    c_idx, c_val, c_ok = _stable_order(c_val, True, c_idx, c_val, c_ok)
-    c_idx, c_val = _stable_order(c_ok, True, c_idx, c_val)
-    return c_val[:, :k].contiguous(), c_idx[:, :k].contiguous()
+    c_idx, c_key, c_ok = _stable_order(c_idx, False, c_idx, c_key, c_ok)
+    c_idx, c_key, c_ok = _stable_order(c_key, True, c_idx, c_key, c_ok)
+    (c_idx,) = _stable_order(c_ok, True, c_idx)
+    c_idx = c_idx[:, :k].contiguous()
+    return torch.gather(values, 1, c_idx), c_idx
 
 
 def _smallest(dists: torch.Tensor, k: int, lowest_index_ties: bool):

@@ -143,3 +143,60 @@ def test_rerank_topk_rejects_l1():
     with pytest.raises(ValueError):
         tt.rerank_topk(torch.from_numpy(q), torch.from_numpy(x).bfloat16(),
                        torch.zeros(x.shape[0]), torch.from_numpy(x), 5, "l1")
+
+
+def _tie_rows(seed, b=6, n=700):
+    """Rows that tie by the hundred: a few distinct values (both zeros
+    among them), runs of -inf, and a row of one value."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0.0, -0.0, 1.5, -2.0, 3.25, -np.inf], np.float32)
+    rows = pool[rng.integers(0, len(pool), (b, n))]
+    rows[1, 100:400] = -np.inf
+    rows[2] = -0.0
+    rows[3, ::2] = 0.0
+    rows[3, 1::2] = -0.0
+    return rows
+
+
+@pytest.mark.parametrize("k", [1, 10, 250, 700])
+def test_topk_largest_lowest_index_matches_lax_top_k(k):
+    """The total order of float32 (-0.0 below +0.0), equal values by
+    ascending index, ``k`` up to the row length."""
+    import jax
+
+    rows = _tie_rows(k)
+    wv, wi = jax.lax.top_k(jnp.asarray(rows), k)
+    gv, gi = tt.topk_largest_lowest_index(torch.from_numpy(rows), k)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    assert gv.numpy().tobytes() == np.asarray(wv).tobytes()
+
+
+def test_topk_largest_lowest_index_signed_zeros():
+    row = np.array([[0.0, -0.0, 0.0, -0.0, 1.0, -np.inf, -np.inf]],
+                   np.float32)
+    _, ids = tt.topk_largest_lowest_index(torch.from_numpy(row), 7)
+    assert ids.tolist() == [[4, 0, 2, 1, 3, 5, 6]]
+
+
+@pytest.mark.parametrize("chunk_rows", [64, 100, 4096])
+def test_chunked_lowest_index_ties_signed_zeros_match_jax(chunk_rows):
+    """Inner-product distances ``-dot`` of a zero query against rows of
+    mixed sign take both signs of zero; the reference selects them with
+    ``jax.lax.top_k(-dists)``, so +0.0 distances rank before -0.0 ones."""
+    rng = np.random.default_rng(9)
+    x = -np.abs(rng.standard_normal((600, 1))).astype(np.float32)
+    x[rng.choice(600, 25, replace=False)] *= -1.0
+    q = np.zeros((3, 1), np.float32)
+    q[1] = -0.0
+    q[2] = 1.0
+    want = jt.chunked_topk_smallest(jnp.asarray(q), jnp.asarray(x), 40, "ip",
+                                    chunk_rows=chunk_rows)
+    got = tt.chunked_topk_smallest(torch.from_numpy(q), torch.from_numpy(x),
+                                   40, "ip", chunk_rows=chunk_rows,
+                                   lowest_index_ties=True)
+    wv, wi = (np.asarray(a) for a in want)
+    zeros = wv[:2] == 0.0
+    assert np.signbit(wv[:2][zeros]).any() and (~np.signbit(
+        wv[:2][zeros])).any()                    # both zeros are selected
+    np.testing.assert_array_equal(got[1].numpy(), wi.astype(np.int64))
+    assert got[0].numpy().tobytes() == wv.tobytes()
