@@ -37,9 +37,14 @@ Phases (any failure exits non-zero and prints no result line):
      queries with groups no doc matches;
      grouped_sums (bit-equal, beside one index_add_ into int32, the library
      call; one read of ids and value rows and one write of the sums at
-     3.35 TB/s): n of 6M and 8M, K of 6 and 20 value rows, G of 1, 12, 64,
-     10,001 and 65,537, every row in one group, and one shape repeated 300
-     times; after [agg], on the inputs each [agg] statement gave it;
+     3.35 TB/s; each shape's placement and cluster size printed beside its
+     time): n of 6M and 8M, K of 6 and 20 value rows, G of 1, 12, 64 (the
+     mask engine), 10,001 and 65,536 (the matmul engine's largest grid)
+     and 200,000 (past a cluster of two: the grid in out), the value rows as K tensors of their own against the stacked block at
+     the first shape of each placement, 300 repeats at Q1's shape and at
+     the first shape spread over a cluster, 65 value rows (two launches),
+     every row in one group; after [agg], on the inputs each [agg]
+     statement gave it (the route's list of rows);
   4. the main path: SessionContext, CREATE TABLE / VECTOR INDEX, insert of
      1,000,000 SIFT1M-shaped rows (128-d integer values in [0, 255], seed 7),
      a literal KNN query, execute_batch (B=256), execute_batch_block
@@ -55,7 +60,11 @@ Phases (any failure exits non-zero and prints no result line):
      into the minima; their results are wrong and the port never loads them)
      beside the kernel, to show which part holds it, and a variant without
      the fence before a stage's release, to show the race the fence closes
-     (launches of 2,000 at tile = 128 that leave the plain answer);
+     (launches of 2,000 at tile = 128 that leave the plain answer); then
+     every placement grouped_sums can take (cluster size x blocks an SM,
+     and the grid in out), each bit-equal and timed at n = 6M, K of 6 and
+     20, G of 12, 10,001, 65,536, 200,000 and 400,000, the plan's choice
+     marked;
   6. [match]: the hybrid deployment of benchmarks/hybrid_serving_bench.py:
      1,000,000 rows in 4 blocks of 262,144 (id, cat, body of 2-4 words from
      a 16-word list, unit-norm 128-d embeddings, seed 17) under an inverted
@@ -111,6 +120,7 @@ Phases (any failure exits non-zero and prints no result line):
 The last line is {"ok": true, "device": {...}}.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -1319,19 +1329,35 @@ def grouped_sums_bound(n, k, groups):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def gs_plan(n, k, groups):
+    """The plan's launches on this card for n rows, k value rows and G, and
+    their placements as text."""
+    from databend_tpu_torch.ops import grouped_sums as gs
+    plan = gs._device_plan(torch.cuda.current_device(), n, k, groups)
+    return plan, " + ".join(
+        f"{l.placement} C={l.cluster} S={l.slices} R={l.rows} W={l.width} "
+        f"T={l.threads} blocks={l.blocks}" for l in plan)
+
+
 def hold_grouped_sums(card, what, gid, rows, groups, repeats=0):
-    """One launch of grouped_sums against its plain version on the same
-    tensors (bit-equal: integer sums), ``repeats`` more launches that must
-    give the same bits, then the kernel, the plain version and the library
-    call (one ``index_add_`` into int32) timed beside the bound.
-    Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms)."""
+    """One call of grouped_sums (one launch a batch of value rows of its
+    plan) against its plain version on the same tensors (bit-equal: integer
+    sums), ``repeats`` more calls that must give the same bits, then the
+    kernel, the plain version and the library call (one ``index_add_`` into
+    int32 from a [K, n] block, stacked before the timing when ``rows`` is a
+    list) timed beside the bound. Returns (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, library_ms, placement)."""
     from databend_tpu_torch.ops.grouped_sums import (
         _grouped_sums_plain, grouped_sums)
-    k, n = rows.shape
+    k = len(rows)
+    n = gid.shape[0]
+    plan, placement = gs_plan(n, k, groups)
     before = grouped_sums.launches
     got = grouped_sums(gid, rows, groups)
     torch.cuda.synchronize()
-    check(grouped_sums.launches == before + 1, f"{what}: no launch")
+    check(grouped_sums.launches == before + len(plan),
+          f"{what}: {grouped_sums.launches - before} launches, want "
+          f"{len(plan)}")
     want = _grouped_sums_plain(gid, rows, groups)
     err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
     check(err == 0, f"grouped_sums vs plain {what}: max abs err {err}")
@@ -1339,44 +1365,85 @@ def hold_grouped_sums(card, what, gid, rows, groups, repeats=0):
         again = grouped_sums(gid, rows, groups)
         check(torch.equal(again, got), f"{what}: launch {i + 2} differs from "
                                        "the first")
+    block = rows if isinstance(rows, torch.Tensor) else torch.stack(rows)
 
     def library():
         return torch.zeros((k, groups + 1), dtype=torch.int32,
-                           device=rows.device).index_add_(1, gid, rows)
+                           device=gid.device).index_add_(1, gid, block)
 
     check(torch.equal(library(), want), f"{what}: index_add_ differs")
     del got, want
     ms = cuda_ms(lambda: grouped_sums(gid, rows, groups))
     plain_ms = cuda_ms(lambda: _grouped_sums_plain(gid, rows, groups))
     library_ms = cuda_ms(library)
+    del block
     bound_ms, bound_by = grouped_sums_bound(n, k, groups)
-    print(f"[kernel] grouped_sums {what}: max_abs_err {err}, kernel {ms:.4f} "
-          f"ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.0f}% reached)"
-          f" [{card}]")
-    return err, ms, plain_ms, bound_ms, bound_by, library_ms
+    print(f"[kernel] grouped_sums {what} ({placement}): max_abs_err {err}, "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{100 * bound_ms / ms:.0f}% reached)"
+          f"{f', {repeats} repeats bit-equal' if repeats else ''} [{card}]")
+    return err, ms, plain_ms, bound_ms, bound_by, library_ms, placement
+
+
+def hold_list_form(card, what, gid, rows, groups):
+    """The value rows as K tensors of their own (the route's form) give the
+    bits of the stacked [K, n] form."""
+    from databend_tpu_torch.ops.grouped_sums import grouped_sums
+    parts = [r.clone() for r in rows]
+    same = torch.equal(grouped_sums(gid, parts, groups),
+                       grouped_sums(gid, rows, groups))
+    print(f"[kernel] grouped_sums {what}: K separate rows equal the stacked "
+          f"block: {same} [{card}]")
+    check(same, f"grouped_sums {what}: the list form differs")
+
+
+GS_GROUPS = (1, 12, 64, 10_001, 65_536, 200_000)
 
 
 def phase_grouped_sums_kernel(card):
     """grouped_sums at the route's sizes: n of 6M (TPC-H SF1 lineitem) and
     8M (one full chunk), K of 6 and 20 value rows, G of 1, 12, 64 (the mask
-    engine), 10,001 and 65,537 (the matmul engine); ids uniform over
-    [0, G], values in [-255, 255] (a limb's range). Then every row in one
-    group (the most contention), and one shape repeated 300 times."""
+    engine), 10,001 and 65,536 (the matmul engine, up to its largest grid)
+    and 200,000 (a grid past a cluster of two, which the plan keeps in out:
+    the route gives it only under raised group caps); ids uniform over [0, G], values in [-255, 255] (a limb's range). The
+    list form against the stacked form at the first shape of each
+    placement; 300 repeats at Q1's shape and at the first shape the plan
+    spreads over a cluster. Then 65 value rows (two launches: more than one
+    launch's row pointers) and every row in one group (the most
+    contention)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    results = {}
+    results, listed, cluster_repeated = {}, set(), False
     for n in (6_000_000, 8_000_000):
         for k in (6, 20):
             rows = torch.randint(-255, 256, (k, n), generator=g,
                                  device="cuda", dtype=torch.int32)
-            for groups in (1, 12, 64, 10_001, 65_537):
+            for groups in GS_GROUPS:
                 gid = torch.randint(0, groups + 1, (n,), generator=g,
                                     device="cuda", dtype=torch.int32)
+                plan, _ = gs_plan(n, k, groups)
+                repeats = 0
+                if (n, k, groups) == (6_000_000, 20, 12):
+                    repeats = 300
+                elif not cluster_repeated and any(l.cluster > 1
+                                                  for l in plan):
+                    repeats, cluster_repeated = 300, True
+                what = f"n={n} K={k} G={groups}"
                 results[(n, k, groups)] = hold_grouped_sums(
-                    card, f"n={n} K={k} G={groups}", gid, rows, groups,
-                    repeats=300 if (n, k, groups) == (6_000_000, 20, 12)
-                    else 0)
+                    card, what, gid, rows, groups, repeats=repeats)
+                kinds = tuple((l.placement, l.cluster > 1) for l in plan)
+                if kinds not in listed:
+                    listed.add(kinds)
+                    hold_list_form(card, what, gid, rows, groups)
             del rows
+    check(cluster_repeated, "no sweep shape spread over a cluster")
+    n, k, groups = 1_000_000, 65, 10_001
+    rows = [torch.randint(-255, 256, (n,), generator=g, device="cuda",
+                          dtype=torch.int32) for _ in range(k)]
+    gid = torch.randint(0, groups + 1, (n,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    results["65 rows"] = hold_grouped_sums(
+        card, f"n={n} K={k} G={groups} (list)", gid, rows, groups)
     n, k = 6_000_000, 20
     rows = torch.randint(-255, 256, (k, n), generator=g, device="cuda",
                          dtype=torch.int32)
@@ -1386,6 +1453,60 @@ def phase_grouped_sums_kernel(card):
     del rows, gid
     torch.cuda.empty_cache()
     return results
+
+
+GS_DIAGNOSE_CLUSTERS = (1, 2, 4, 8)   # every cluster size the kernel takes
+
+
+def diagnose_grouped_sums(card):
+    """grouped_sums at n = 6M, K of 6 and 20 value rows (the list form):
+    every placement the kernel can take (``_placement`` for each cluster
+    size and blocks an SM, and the grid in out, ``_global_placement``) at G
+    of 12, 10,001, 65,536 (the matmul engine's largest grid), 200,000 and
+    400,000 (past a cluster of two: only under raised group caps), each
+    bit-equal to the plain version, then timed in turn, the plan's choice
+    marked."""
+    from databend_tpu_torch.ops import grouped_sums as gs
+    index = torch.cuda.current_device()
+    occupancy = functools.partial(gs._occupancy, index)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = gs._launcher()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    n = 6_000_000
+    for k in (6, 20):
+        rows = [torch.randint(-255, 256, (n,), generator=g, device="cuda",
+                              dtype=torch.int32) for _ in range(k)]
+        for groups in (12, 10_001, 65_536, 200_000, 400_000):
+            gid = torch.randint(0, groups + 1, (n,), generator=g,
+                                device="cuda", dtype=torch.int32)
+            want = gs._grouped_sums_plain(gid, rows, groups)
+            out = torch.zeros_like(want)
+            chosen = gs._device_plan(index, n, k, groups)[0]
+            launches = [gs._placement(n, 0, k, groups, cluster, per_sm,
+                                      occupancy)
+                        for cluster in GS_DIAGNOSE_CLUSTERS
+                        for per_sm in gs.BLOCKS_PER_SM]
+            launches.append(gs._global_placement(n, 0, k, groups, occupancy))
+
+            def run(launch, gid=gid, rows=rows, out=out):
+                out.zero_()
+                gs._launch(lib, gid, rows, out, launch, stream)
+
+            for launch in filter(None, launches):
+                run(launch)
+                torch.cuda.synchronize()
+                check(torch.equal(out, want),
+                      f"--diagnose: {launch} differs from the plain version")
+                ms = cuda_ms(lambda: run(launch), 10)
+                mark = " (the plan)" if launch == chosen else ""
+                print(f"[diagnose] grouped_sums n={n} K={k} G={groups}: "
+                      f"{launch.placement} C={launch.cluster} "
+                      f"S={launch.slices} R={launch.rows} W={launch.width} "
+                      f"T={launch.threads} blocks={launch.blocks}: "
+                      f"{ms:.4f} ms{mark} [{card}]")
+            del want, out, gid
+        del rows
+    torch.cuda.empty_cache()
 
 
 def string_column(arr):
@@ -1646,7 +1767,7 @@ def hold_grouped_sums_agg(card, captured):
     of each statement)."""
     results = {}
     for name, (gid, rows, groups) in captured.items():
-        k, n = rows.shape
+        k, n = len(rows), gid.shape[0]
         results[name] = hold_grouped_sums(
             card, f"[agg] {name}: n={n} K={k} G={groups}", gid, rows, groups)
     return results
@@ -1822,6 +1943,7 @@ def main():
     gsk = phase_grouped_sums_kernel(card)
     if "--diagnose" in sys.argv[1:]:
         diagnose_flash(card)
+        diagnose_grouped_sums(card)
     profile = "--profile" in sys.argv[1:]
     launches = phase_main_path(card, profile)
     check(launches > 0, "the main path launched flash_group_minima no time")
@@ -1871,7 +1993,7 @@ def main():
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": pair_ms})
     # the kernel on Q1's own inputs (mask engine, G = 12)
-    _, ms, plain_ms, bound_ms, bound_by, library_ms = gsk["q1"]
+    _, ms, plain_ms, bound_ms, bound_by, library_ms, _ = gsk["q1"]
     kernels.append({
         "name": "grouped_sums", "route": "cuda",
         "source": "databend_tpu_torch/csrc/grouped_sums.cu",

@@ -923,8 +923,9 @@ def _build_program(ir: tuple):
     Three grouping engines:
       - "mask" (small G) and "matmul" (G into the tens of thousands): the
         count, COUNT and SUM/AVG rows (valid count + limbs) go to the
-        kernel ``grouped_sums`` as one [K, n] int32 block; it sums them by
-        group id in one launch. The matmul engine keeps the reference's
+        kernel ``grouped_sums`` as a list of K [n] int32 tensors, read
+        where they lie (no [K, n] block); it sums them by group id in one
+        launch. The matmul engine keeps the reference's
         rows: every limb split as l = lo + 128*hi with lo in [0, 127]
         (the reference's int8 operands), so the chunk combine and
         ``_finalize`` read both layouts as the reference does. MIN/MAX
@@ -989,7 +990,7 @@ def _build_program(ir: tuple):
                 layout.append(ext[:G])
             else:  # pragma: no cover
                 raise ValueError(kind)
-        acc = gsums.grouped_sums(gid, torch.stack(rows), G)
+        acc = gsums.grouped_sums(gid, rows, G)
         return torch.stack([acc[r, :G] if isinstance(r, int) else r
                             for r in layout])
 

@@ -14,6 +14,7 @@ arithmetic is held to the JAX functions on negative and large limbs.
 """
 
 import tempfile
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,7 +43,8 @@ DEFAULTS = {"enable_device_local_execution": 1,
             "device_scan_agg_min_rows": 0,
             "device_scan_agg_max_groups": 64,
             "device_scan_agg_max_groups_matmul": 65536,
-            "device_scan_agg_max_groups_sort": 1 << 22}
+            "device_scan_agg_max_groups_sort": 1 << 22,
+            "device_scan_agg_max_pull_mb": 16}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -413,6 +415,72 @@ def test_kernel_failure_raises(ctxs, monkeypatch):
     with pytest.raises(RuntimeError, match="injected"):
         t.sql("select k, count(*), sum(p) from t group by k").rows()
     assert _count(TMETRICS, "device_scan_agg_errors") == errors
+
+
+@pytest.mark.parametrize("name", ["q1", "by_supplier", "matmul_engine",
+                                  "all_agg_kinds"])
+def test_program_sums_passes_row_list(ctxs, monkeypatch, name):
+    """The route hands grouped_sums its value rows as a list of [n] tensors,
+    read where they lie: it never stacks them into a [K, n] block."""
+    overrides, _, sql = {c[0]: c[1:] for c in CASES + TPCH}[name]
+    passed, stacked = [], []
+    real_stack = torch.stack
+
+    def stack_spy(tensors, *args, **kwargs):
+        stacked.append(tensors)
+        return real_stack(tensors, *args, **kwargs)
+
+    def sums_spy(gid, rows, groups):
+        passed.append(rows)
+        return tgs.grouped_sums(gid, rows, groups)
+
+    monkeypatch.setattr(tdsa, "gsums",
+                        types.SimpleNamespace(grouped_sums=sums_spy))
+    monkeypatch.setattr(torch, "stack", stack_spy)
+    _, t = ctxs
+    _set(t, overrides)
+    _routed_rows(t, TMETRICS, sql)
+    assert passed
+    for rows in passed:
+        assert isinstance(rows, list) and rows
+        assert all(r.ndim == 1 and r.dtype == torch.int32 for r in rows)
+        assert not any(s is rows for s in stacked)
+
+
+def test_grid_past_the_cluster_reach(ctxs, monkeypatch):
+    """The group caps are settings (the matmul engine's up to 2^24 groups):
+    raised, a GROUP BY of 1,002,001 groups, one row wider than two blocks'
+    shared memory, runs through grouped_sums like any other and equals the
+    host route. The kernel's plan places such a grid in out (global
+    atomics): it has a placement for every grid the route gives it."""
+    _, t = ctxs
+    n = 2000
+    i = np.arange(n, dtype=np.int64)
+    a, b = i % 1000, (7 * i + i // 1000) % 1000
+    v = np.random.default_rng(3).integers(-10 ** 6, 10 ** 6, n)
+    t.sql("create table wide (a bigint, b bigint, v bigint)")
+    t.insert_block("wide", texpr.DataBlock(
+        ["a", "b", "v"], [texpr.Column(ttypes.Int64, x) for x in (a, b, v)]))
+    shapes = []
+
+    def sums_spy(gid, rows, groups):
+        shapes.append((gid.shape[0], len(rows), groups))
+        return tgs.grouped_sums(gid, rows, groups)
+
+    monkeypatch.setattr(tdsa, "gsums",
+                        types.SimpleNamespace(grouped_sums=sums_spy))
+    sql = ("select a, b, count(*), sum(v) from wide group by a, b"
+           " order by a, b")
+    _set(t, {"device_scan_agg_max_groups_matmul": 1 << 24,
+             "device_scan_agg_max_pull_mb": 0})
+    routed = _routed_rows(t, TMETRICS, sql)
+    t.sql("set enable_device_local_execution = 0")
+    _assert_same(t.sql(sql).rows(), routed)
+    assert len(routed) == n
+    assert shapes and all(g == 1001 * 1001 for _, _, g in shapes)
+    for rows_n, k, groups in shapes:
+        assert all(launch.placement == "global"
+                   for launch in tgs._plan(rows_n, k, groups, 132))
 
 
 def _limbs_pair(rng, n, n_limbs, bound):
