@@ -1,7 +1,9 @@
 """Drive the port's serving paths once on one CUDA card: exact and
 approximate KNN, BM25 text and hybrid text+vector serving, the HNSW
-index (graph build at insert, beam search from SQL), and the device
-scan-aggregate route (GROUP BY over card-resident columns).
+index (graph build at insert, beam search from SQL), the device
+scan-aggregate route (GROUP BY over card-resident columns), and the
+join-aggregate route with the finalize fusion (TPC-H joins, HAVING and
+top-n on the card).
 
     python3 chip_smoke.py [--profile] [--diagnose]
 
@@ -45,7 +47,16 @@ Phases (any failure exits non-zero and prints no result line):
      the first shape spread over a cluster, 65 value rows (two launches),
      every row in one group; after [agg], on the inputs each [agg]
      statement gave it (the route's list of rows);
-  4. the main path: SessionContext, CREATE TABLE / VECTOR INDEX, insert of
+  4. [ties]: exact KNN on tied distances (integer rows in [0, 3], 262,144 x
+     128 under l2; rows of a power-of-two norm, 262,144 x 8 under cosine,
+     and a zero query: distances exact in f32): 8 literal statements,
+     execute_batch at B = 256, execute_batch_block at B = 300 and a
+     filtered batch, each query's ids equal to the reference's tie rule
+     (ascending distance, equal distances by ascending row id) computed in
+     numpy; ``ops.topk.topk_smallest_lowest_index`` on the card equal to
+     itself on CPU tensors, on a tied block and on one without ties, in
+     both of its ways (a row of 262,144 and one of 8,192 distances);
+     the main path: SessionContext, CREATE TABLE / VECTOR INDEX, insert of
      1,000,000 SIFT1M-shaped rows (128-d integer values in [0, 255], seed 7),
      a literal KNN query, execute_batch (B=256), execute_batch_block
      (B=1024, exact and approximate; B=256 approximate runs the exact
@@ -111,7 +122,15 @@ Phases (any failure exits non-zero and prints no result line):
      numpy computation in integer cents. grouped_sums must have launched
      once per routed mask / matmul call. Then Q1 in 4 chunks of 1,500,000
      rows, equal to the one-chunk Q1; with --profile each statement's warm
-     call under torch.profiler;
+     call under torch.profiler. Then [tpch] in the same session: the other
+     seven tables of the same generator (2.66M rows), every table
+     analyzed, and TPC-H q2, q3, q10, q11, q13, q15, q16 and q18 with the
+     route defaults: host time, first routed call, the median of 3 warm
+     calls; rows equal to the host's and passing ``benchmarks.tpch.check``
+     against its pandas ``expected``, no route error; the routes that
+     engaged (J1 enrichment, J2 pushdown, the fusion), the engines, any
+     decline's reason, grouped_sums launches (added to [agg]'s in the
+     kernels line);
   10. [suites]: ``python -m databend_tpu_torch sqllogic tests/suites/index``
      on the card exits 0;
   11. stand-alone: every loaded port module (the device BM25, HNSW and
@@ -158,6 +177,10 @@ AGG_SF = 1.0           # the [agg] deployment: TPC-H SF1 (6,000,000 lineitem row
 AGG_SEED = 42          # benchmarks/tpch.py's default seed
 AGG_REPS = 5           # warm routed calls per statement
 AGG_CHUNK_ROWS = 1_500_000  # Q1 once more in 4 chunks (the route's default: 8M)
+TPCH_QUERIES = ("q2", "q3", "q10", "q11", "q13", "q15", "q16", "q18")
+TPCH_REPS = 3          # warm routed calls per [tpch] statement
+TIES_ROWS = 262_144    # [ties]: one block of integer rows in [0, 3]
+TIES_SEED = 29
 MATCH_WORDS = ["weather", "news", "google", "maps", "cat", "videos", "python",
                "flights", "hotels", "music", "games", "sports", "stock",
                "market", "recipe", "travel"]
@@ -652,6 +675,125 @@ def diagnose_flash(card):
                   f"{name}: {bad} of {RACE_LAUNCHES} launches differ from "
                   f"the plain version [{card}]")
             check(name != "kernel" or bad == 0, "the kernel races")
+
+
+def ties_truth(x, q, metric, keep=None):
+    """The reference's ids on exact distances: ascending distance, equal
+    distances by ascending row id (``jax.lax.top_k(-d, k)``); rows outside
+    ``keep`` excluded. Integer rows give exact l2 distances, and rows of a
+    power-of-two norm exact cosines."""
+    x64, q64 = x.astype(np.float64), q.astype(np.float64)
+    if metric == "l2":
+        d = (x64 * x64).sum(1)[None, :] - 2.0 * (q64 @ x64.T) \
+            + (q64 * q64).sum(1)[:, None]
+    else:
+        xn = x64 / np.linalg.norm(x64, axis=1, keepdims=True)
+        qn = q64 / np.maximum(np.linalg.norm(q64, axis=1, keepdims=True), 1)
+        d = 1.0 - qn @ xn.T
+    if keep is not None:
+        d = np.where(keep, d, np.inf)
+    kth = np.partition(d, K - 1, axis=1)[:, K - 1]
+    out = []
+    for b in range(d.shape[0]):
+        cand = np.nonzero(d[b] <= kth[b])[0]
+        out.append(cand[np.argsort(d[b, cand], kind="stable")][:K])
+    return np.stack(out), float(((d <= kth[:, None]).sum(1) > K).mean())
+
+
+def phase_ties(card):
+    """Exact KNN on tied distances takes the reference's order on the card
+    (ROADMAP fault F7): integer rows in [0, 3] (TIES_ROWS x 128, l2) and
+    rows of a power-of-two norm (TIES_ROWS x 8, cosine, and a zero query),
+    whose distances are exact in f32, so every path's ids must equal the
+    numpy tie-rule truth: 8 literal statements, execute_batch at B = 256,
+    execute_batch_block at B = 300 (two query chunks) and a filtered batch
+    (``price < ?``). Then ``topk_smallest_lowest_index`` on the card against
+    itself on CPU tensors, on a tied block and on one without ties, with
+    rows of 262,144 (one top-(k+1); without ties only reordered) and 8,192
+    distances (one stable sort): ids equal, values bit-equal."""
+    import databend_tpu_torch as dt
+    from databend_tpu_torch.expression import Column, DataBlock
+    from databend_tpu_torch.ops import topk
+    from databend_tpu_torch.types import VectorType
+
+    rng = np.random.default_rng(TIES_SEED)
+    x = rng.integers(0, 4, (TIES_ROWS, DIM)).astype(np.float32)
+    q = rng.integers(0, 4, (300, DIM)).astype(np.float32)
+    pool = rng.integers(0, 4, (400_000, 8)).astype(np.float32)
+    pool = pool[np.isin((pool ** 2).sum(1), (1, 4, 16))]
+    xc = pool[rng.integers(0, len(pool), TIES_ROWS)]
+    qc = pool[rng.integers(0, len(pool), 300)]
+    qc[0] = 0.0
+    price = rng.integers(0, 100, TIES_ROWS).astype(np.int64)
+    bounds = np.resize(np.array([1, 50, 90, 100]), 300)
+    with tempfile.TemporaryDirectory() as root:
+        ctx = dt.SessionContext(root)
+        try:
+            for name, rows in (("ti", x), ("tc", xc)):
+                d = rows.shape[1]
+                ctx.sql(f"CREATE TABLE {name} (id BIGINT, price BIGINT, "
+                        f"emb VECTOR({d})) ROW_PER_BLOCK='{TIES_ROWS}'")
+                ctx.sql(f"CREATE VECTOR INDEX {name}v ON {name}(emb) "
+                        "distance='l2,cosine'")
+                ctx.insert_block(name, DataBlock(
+                    ["id", "price", "emb"],
+                    [Column.from_numpy(np.arange(TIES_ROWS, dtype=np.int64)),
+                     Column.from_numpy(price),
+                     Column.from_numpy(rows, VectorType(d))]))
+            ctx.sql("SET vector_host_scan_max_rows = 0")
+            for fn, table, rows, qs in (("l2_distance", "ti", x, q),
+                                        ("cosine_distance", "tc", xc, qc)):
+                metric = fn.split("_")[0]
+                want, tied = ties_truth(rows, qs, metric)
+                keep = price[None, :] < bounds[:, None]
+                want_f, _ = ties_truth(rows, qs, metric, keep)
+                lit = [",".join(f"{v:.1f}" for v in r) for r in qs[:8]]
+                got_lit = np.array([[r[0] for r in ctx.sql(
+                    f"SELECT id FROM {table} ORDER BY {fn}(emb, [{v}]) "
+                    "LIMIT 10").rows()] for v in lit])
+                ps = ctx.prepare(f"SELECT id, {fn}(emb, ?) AS d FROM {table} "
+                                 f"ORDER BY {fn}(emb, ?) LIMIT 10")
+                got_b = np.array([[r[0] for r in res.rows()] for res in
+                                  ps.execute_batch([(v, v) for v in qs[:256]],
+                                                   exact=True)])
+                got_blk = np.array([r[1] for r in ps.execute_batch_block(
+                    [(v, v) for v in qs], exact=True).rows()]).reshape(-1, K)
+                fps = ctx.prepare(f"SELECT id, {fn}(emb, ?) AS d FROM {table}"
+                                  f" WHERE price < ? ORDER BY {fn}(emb, ?) "
+                                  "LIMIT 10")
+                got_f = np.array([[r[0] for r in res.rows()] for res in
+                                  fps.execute_batch(
+                                      [(v, int(p), v)
+                                       for v, p in zip(qs, bounds)],
+                                      exact=True)])
+                same = {"literal": (got_lit == want[:8]).all(1),
+                        "execute_batch": (got_b == want[:256]).all(1),
+                        "execute_batch_block": (got_blk == want).all(1),
+                        "filtered": (got_f == want_f).all(1)}
+                print(f"[ties] {fn}, {TIES_ROWS} x {rows.shape[1]} rows, "
+                      f"{100 * tied:.0f}% of queries tie across rank 10: "
+                      + ", ".join(f"{k} {int(v.sum())}/{len(v)} equal to "
+                                  f"the tie-rule truth"
+                                  for k, v in same.items()) + f" [{card}]")
+                for k, v in same.items():
+                    check(v.all(), f"[ties] {fn} {k}: ids differ from the "
+                                   "tie-rule truth")
+        finally:
+            ctx.close()
+    g = torch.Generator(device="cuda").manual_seed(TIES_SEED)
+    for n in (1 << 18, 1 << 13):       # the top-(k+1) way, the sort way
+        for what, d in (
+                ("tied", torch.randint(0, 40, (256, n), generator=g,
+                                       device="cuda").float()),
+                ("no ties", torch.randperm(n, generator=g, device="cuda")
+                 .float()[None].expand(256, -1).contiguous())):
+            gv, gi = topk.topk_smallest_lowest_index(d, K)
+            cv, ci = topk.topk_smallest_lowest_index(d.cpu(), K)
+            same = torch.equal(gi.cpu(), ci) and same_bits(gv.cpu(), cv)
+            print(f"[ties] topk_smallest_lowest_index on a [256, {n}] "
+                  f"block, {what}: card equal to CPU: {same} [{card}]")
+            check(same, f"[ties] the card's selection ({what}, n = {n}) "
+                        "differs from the CPU's")
 
 
 def phase_main_path(card, profile):
@@ -1627,8 +1769,9 @@ def phase_agg(card, profile):
     named engine, and return the host's rows; Q1 and Q6 also a numpy
     computation in integer cents. Then Q1 once more with CHUNK_ROWS at
     AGG_CHUNK_ROWS (4 chunks combined on the host).
-    Returns the grouped_sums launches of the statements and the kernel's
-    inputs of each statement's first routed call."""
+    Then [tpch] (``phase_tpch``) in the same context, over this lineitem.
+    Returns the grouped_sums launches of the [agg] statements, the kernel's
+    inputs of each statement's first routed call, and the [tpch] launches."""
     import types as pytypes
     import databend_tpu_torch as dt
     from benchmarks.tpch import generate
@@ -1637,7 +1780,8 @@ def phase_agg(card, profile):
     from databend_tpu_torch.utils.metrics import METRICS
 
     t0 = time.perf_counter()
-    li = generate(AGG_SF, seed=AGG_SEED)["lineitem"]
+    data = generate(AGG_SF, seed=AGG_SEED)
+    li = data["lineitem"]
     n = len(li["l_orderkey"])
     q1_truth, q6_truth = agg_truth(li)
     print(f"[agg] TPC-H sf {AGG_SF} lineitem: {n} rows + numpy Q1 / Q6 in "
@@ -1755,11 +1899,161 @@ def phase_agg(card, profile):
                 for name, _, sql in statements:
                     profile_call(f"[agg] {name} warm routed call", card,
                                  lambda r, sql=sql: ctx.sql(sql).rows())
-            return launches, captured
+            tpch_launches = phase_tpch(card, profile, ctx, data, engines,
+                                       state)
+            return launches, captured, tpch_launches
         finally:
             dsa._build_program = real_program
             dsa.gsums = real_gsums
             ctx.close()
+
+
+def load_tpch_tables(ctx, data, skip=()):
+    """The tables of benchmarks/tpch.py, typed and analyzed as its ``load``
+    does (that loader imports the JAX package)."""
+    from benchmarks.tpch import DDL
+    from databend_tpu_torch.expression import Column, DataBlock
+    from databend_tpu_torch.types import Date, Float64, Int64
+    money = ("c_acctbal", "s_acctbal", "o_totalprice", "l_quantity",
+             "l_extendedprice", "l_discount", "l_tax", "ps_supplycost")
+    for tname, cols in data.items():
+        if tname in skip:
+            continue
+        ctx.sql(DDL[tname])
+        arrays = []
+        for name, vals in cols.items():
+            if name.endswith("date"):
+                arrays.append(Column(Date, vals.astype(np.int32)))
+            elif name in money:
+                arrays.append(Column(Float64, vals.astype(np.float64)))
+            elif vals.dtype.kind in "iu":
+                arrays.append(Column(Int64, vals.astype(np.int64)))
+            else:
+                arrays.append(string_column(vals))
+        ctx.insert_block(tname, DataBlock(list(cols), arrays))
+    for tname in data:
+        ctx.sql(f"ANALYZE TABLE {tname}")
+
+
+def phase_tpch(card, profile, ctx, data, engines, state):
+    """The join-aggregate route and the finalize fusion on TPC-H SF1: the
+    other seven tables of ``generate(AGG_SF, seed=AGG_SEED)`` loaded beside
+    [agg]'s lineitem (2.66M rows more, nothing cut), every table analyzed,
+    route defaults on. Each of TPCH_QUERIES on the host (route off), then
+    routed: the first call and TPCH_REPS warm calls. Each routed call must
+    count no route error, return the host's rows (sorted, floats within rel
+    1e-12) and pass ``benchmarks.tpch.check`` against the pandas
+    ``expected``. Printed per statement: the routes that engaged (J1
+    enrichment, J2 pushdown, the fusion, a plain scan-aggregate), the
+    engines, any ``_Bail`` reason (a decline at this size fails nothing),
+    grouped_sums launches. Returns the phase's grouped_sums launches."""
+    from benchmarks import tpch
+    from databend_tpu_torch.ops import grouped_sums as gs
+    from databend_tpu_torch.pipeline import device_fusion as dfu
+    from databend_tpu_torch.pipeline import device_join_agg as dja
+    from databend_tpu_torch.pipeline import device_scan_agg as dsa
+    from databend_tpu_torch.utils.metrics import METRICS
+
+    t0 = time.perf_counter()
+    load_tpch_tables(ctx, data, skip=("lineitem",))
+    rows_more = sum(len(next(iter(c.values()))) for t, c in data.items()
+                    if t != "lineitem")
+    print(f"[tpch] create + insert the other seven tables ({rows_more} rows)"
+          f" and analyze all eight: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    frames = tpch.frames(data)
+    expected = {q: tpch.expected(frames, q) for q in TPCH_QUERIES}
+    del frames
+    print(f"[tpch] pandas expected rows: {time.perf_counter() - t0:.1f} s "
+          "(host)")
+
+    routes, bails = [], []
+    real = (dja._route_enrichment, dja._route_agg_pushdown, dfu.run_fusion,
+            dsa._prepare)
+
+    def host_half(name, fn):
+        def spy(*a, **k):
+            try:
+                run = fn(*a, **k)
+            except dsa._Bail as e:
+                bails.append(f"{name}: {e}")
+                raise
+            return lambda: routes.append(name) or run()
+        return spy
+
+    def fusion_spy(*a):
+        routes.append("fusion")
+        return real[2](*a)
+
+    def counts():
+        snap = METRICS.snapshot()
+        return tuple(snap.get(k, 0) for k in (
+            "device_scan_agg_queries", "device_join_agg_queries",
+            "device_scan_agg_errors", "device_join_agg_errors"))
+
+    dja._route_enrichment = host_half("J1", real[0])
+    dja._route_agg_pushdown = host_half("J2", real[1])
+    dfu.run_fusion = fusion_spy
+    dsa._prepare = host_half("scan-agg", real[3])
+    total = 0
+    try:
+        for q in TPCH_QUERIES:
+            sql = tpch.QUERIES[q]
+            state["statement"] = f"tpch {q}"
+            ctx.sql("SET enable_device_local_execution = 0")
+            t0 = time.perf_counter()
+            host = ctx.sql(sql).rows()
+            host_s = time.perf_counter() - t0
+            check(tpch.check(q, host, expected[q]),
+                  f"[tpch] {q}: the host route differs from tpch.expected")
+            ctx.sql("SET enable_device_local_execution = 1")
+            routes.clear()
+            bails.clear()
+            engines.clear()
+            gs.grouped_sums.launches = 0
+            before = counts()
+            t0 = time.perf_counter()
+            first = ctx.sql(sql).rows()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            after = counts()
+            took = (sorted(set(routes)), sorted(set(engines)), list(bails))
+            warm = []
+            for _ in range(TPCH_REPS):
+                t0 = time.perf_counter()
+                again = ctx.sql(sql).rows()
+                torch.cuda.synchronize()
+                warm.append(time.perf_counter() - t0)
+                check(again == first, f"[tpch] {q}: a warm call differs "
+                                      "from the first")
+            launches = gs.grouped_sums.launches
+            total += launches
+            errors = counts()[2:]
+            check(errors == before[2:],
+                  f"[tpch] {q}: route errors {before[2:]} -> {errors}")
+            check(same_rows(sorted(host), sorted(first)),
+                  f"[tpch] {q}: routed rows differ from the host's: "
+                  f"{host[:3]} vs {first[:3]}")
+            check(tpch.check(q, first, expected[q]),
+                  f"[tpch] {q}: routed rows differ from tpch.expected")
+            print(f"[tpch] {q} ({len(first)} rows, equal to the host's and "
+                  f"tpch.expected): host {host_s * 1e3:.1f} ms, first routed "
+                  f"{first_s * 1e3:.1f} ms, warm routed "
+                  f"{float(np.median(warm)) * 1e3:.1f} ms (median of "
+                  f"{TPCH_REPS}); routes {took[0] or 'none'}, engines "
+                  f"{took[1] or 'none'}, scan-agg / join-agg queries "
+                  f"+{after[0] - before[0]:g} / +{after[1] - before[1]:g}, "
+                  f"errors +0, grouped_sums launches {launches}; declined: "
+                  f"{took[2] or 'nothing'} [{card}]")
+            if profile:
+                profile_call(f"[tpch] {q} warm routed call", card,
+                             lambda r, sql=sql: ctx.sql(sql).rows())
+    finally:
+        (dja._route_enrichment, dja._route_agg_pushdown, dfu.run_fusion,
+         dsa._prepare) = real
+    print(f"[tpch] grouped_sums launches over the statements: {total} "
+          f"[{card}]")
+    return total
 
 
 def hold_grouped_sums_agg(card, captured):
@@ -1945,6 +2239,7 @@ def main():
         diagnose_flash(card)
         diagnose_grouped_sums(card)
     profile = "--profile" in sys.argv[1:]
+    phase_ties(card)
     launches = phase_main_path(card, profile)
     check(launches > 0, "the main path launched flash_group_minima no time")
     topk_launches, imp_launches = phase_match(card, profile)
@@ -1954,8 +2249,9 @@ def main():
                             "impact_bm25_scores no time")
     phase_hnsw(card, profile)
     phase_cluster(card)
-    gs_launches, captured = phase_agg(card, profile)
+    gs_launches, captured, tpch_launches = phase_agg(card, profile)
     check(gs_launches > 0, "the [agg] path launched grouped_sums no time")
+    gs_launches += tpch_launches
     gsk.update(hold_grouped_sums_agg(card, captured))
     del captured
     phase_suites(card)

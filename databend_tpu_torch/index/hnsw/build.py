@@ -68,8 +68,7 @@ def _knn_batch(x: torch.Tensor, q: torch.Tensor, own: torch.Tensor, k: int,
     """One query batch of the all-pairs kNN: top-(k+1) then drop self."""
     dists, ids = chunked_topk_smallest(q, x, k + 1, metric,
                                        chunk_rows=chunk_rows,
-                                       compute_dtype=torch.bfloat16,
-                                       lowest_index_ties=True)
+                                       compute_dtype=torch.bfloat16)
     dists = torch.where(ids == own[:, None], INF, dists)
     # k smallest of k + 1, equal distances in position order
     vals, pos = torch.sort(dists, dim=1, stable=True)

@@ -26,6 +26,7 @@ import torch
 
 from . import _cuda
 from .distance import _dot
+from .topk import topk_smallest_lowest_index
 
 _KERNEL_LANES = 128   # the CUDA kernel's L
 _TMA_ALIGN = 16       # bytes: base address of a tensor map or bulk copy
@@ -174,7 +175,7 @@ def flash_topk(q: torch.Tensor, x_bf16: torch.Tensor, norms: torch.Tensor,
     minima = flash_group_minima(qk.contiguous(), x_bf16, norms, metric, tile,
                                 buckets)                         # [T, B, L]
     flat = minima.permute(1, 0, 2).reshape(b, -1)                # [B, T*L]
-    _, win = torch.topk(flat, shortlist, dim=1, largest=False)   # [B, S]
+    _, win = topk_smallest_lowest_index(flat, shortlist)        # [B, S]
     # group (tile_idx, lane) -> its tile/L member rows
     tile_idx = win // buckets
     lane = win % buckets
@@ -191,5 +192,5 @@ def flash_topk(q: torch.Tensor, x_bf16: torch.Tensor, norms: torch.Tensor,
         exact = -torch.einsum("bsd,bd->bs", cand_vecs, q32)
     if n_valid is not None:
         exact = exact.masked_fill(cand >= n_valid, float("inf"))
-    vals, pos = torch.topk(exact, k, dim=1, largest=False)
+    vals, pos = topk_smallest_lowest_index(exact, k)
     return vals, torch.gather(cand, 1, pos)

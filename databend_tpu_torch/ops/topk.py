@@ -1,9 +1,11 @@
 """K-select (port of ``databend_tpu/ops/topk.py``).
 
-``lax.top_k`` becomes ``torch.topk(largest=False)``. The reference's
-``approx_min_k`` also becomes ``torch.topk``: XLA lowers ``approx_min_k`` to
-an exact top-k off the TPU, and the fused approximate selector of this port
-is the flash kernel (``ops/flash_topk.py``). The streaming scan is a Python
+``lax.top_k(-d, k)`` becomes :func:`topk_smallest_lowest_index`: equal
+distances rank by ascending position, as ``lax.top_k`` ranks them, where a
+bare ``torch.topk`` keeps any of them. The reference's ``approx_min_k``
+becomes the same exact selection: XLA lowers ``approx_min_k`` to an exact
+top-k off the TPU, and the fused approximate selector of this port is the
+flash kernel (``ops/flash_topk.py``). The streaming scan is a Python
 loop that carries the running ``[B, k]`` set, the counterpart of the
 reference's ``lax.scan``. Selectors carry ``(distance, id)`` pairs so merges
 keep global row ids.
@@ -11,7 +13,7 @@ keep global row ids.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +30,7 @@ def topk_smallest(dists: torch.Tensor, k: int,
     ascending. ``ids``: optional ``[N]`` or ``[B, N]`` global ids returned
     instead of positions. The reference's ``approx=True`` (``approx_min_k``)
     has no counterpart: its port is this exact selection."""
-    vals, pos = torch.topk(dists, k, dim=1, largest=False)
+    vals, pos = topk_smallest_lowest_index(dists, k)
     if ids is not None:
         if ids.ndim == 1:
             return vals, ids[pos]
@@ -88,14 +90,94 @@ def topk_largest_lowest_index(values: torch.Tensor, k: int
     return torch.gather(values, 1, c_idx), c_idx
 
 
-def _smallest(dists: torch.Tensor, k: int, lowest_index_ties: bool):
-    """Smallest-k (values, positions) per row; with ``lowest_index_ties``
-    equal distances rank by ascending position, as ``jax.lax.top_k`` ranks
-    them."""
-    if lowest_index_ties:
-        neg, pos = topk_largest_lowest_index(-dists, k)
-        return -neg, pos
-    return torch.topk(dists, k, dim=1, largest=False)
+# rows of at most this many distances are ranked by one stable sort of
+# their order keys (no host synchronisation); longer rows take torch.topk
+SORT_MAX_N = 16384
+
+
+def _select(dists: torch.Tensor, k: int):
+    """(values, positions, tied) of the smallest k per row, in the order of
+    :func:`topk_smallest_lowest_index` except on the rows flagged in
+    ``tied`` (bool ``[B]`` on the device, None when no row can be), which
+    that function selects again. No host synchronisation."""
+    n = dists.shape[1]
+    if n <= SORT_MAX_N:
+        pos = torch.sort(_order_key(-dists), dim=1, descending=True,
+                         stable=True).indices[:, :k]
+        return torch.gather(dists, 1, pos), pos, None
+    vals, pos = torch.topk(dists, min(k + 1, n), dim=1, largest=False)
+    tied = vals[:, k] == vals[:, k - 1] if k < n else None
+    key = _order_key(-vals[:, :k])
+    pos, key = _stable_order(pos[:, :k], False, pos[:, :k], key)
+    (pos,) = _stable_order(key, True, pos)
+    return torch.gather(dists, 1, pos), pos, tied
+
+
+def _select_tied(out, i: int, dists: torch.Tensor, flag: torch.Tensor,
+                 done, k: int) -> None:
+    """Select again, with the second selection, the rows of block ``i``
+    that ``flag`` (a host copy of ``tied``, ready once ``done`` is) marks."""
+    if done is not None:
+        done.synchronize()
+    if not bool(flag.any()):
+        return      # no copy to the card: even an empty one waits for it
+    rows = torch.nonzero(flag).flatten().to(dists.device)
+    pos = out[i][1]
+    _, pos[rows] = topk_largest_lowest_index(-dists[rows], k)
+    out[i][0] = torch.gather(dists, 1, pos)
+
+
+def topk_smallest_lowest_index_blocks(blocks: Iterable[torch.Tensor], k: int
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`topk_smallest_lowest_index` of each float32 ``[b, N]`` block
+    of ``blocks`` (a generator, say, that scores one query chunk at a time),
+    the blocks' (values, positions) concatenated along the rows. A block's
+    tied rows are read on the host one block later, from a copy the card
+    makes once it has selected, so the host queues the next block's work
+    before it waits and the card is not left idle between blocks; two
+    blocks are alive at a time."""
+    out, pending = [], None
+    for dists in blocks:
+        vals, pos, tied = _select(dists, k)
+        out.append([vals, pos])
+        if pending is not None:
+            _select_tied(out, *pending, k)
+            pending = None
+        if tied is None:
+            continue
+        if dists.is_cuda:
+            flag = torch.empty(tied.shape, dtype=tied.dtype, pin_memory=True)
+            flag.copy_(tied, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            flag, done = tied, None
+        pending = (len(out) - 1, dists, flag, done)
+    if pending is not None:
+        _select_tied(out, *pending, k)
+    if len(out) == 1:
+        return tuple(out[0])
+    return (torch.cat([vals for vals, _ in out]),
+            torch.cat([pos for _, pos in out]))
+
+
+def topk_smallest_lowest_index(dists: torch.Tensor, k: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Smallest-k per row of float32 ``dists [B, N]`` (no NaN) -> (values,
+    positions) ``[B, k]`` in ``jax.lax.top_k(-dists, k)``'s order: equal
+    distances by ascending position, the lowest positions kept at the k-th
+    place, signed zeros as :func:`_order_key` orders ``-dists``.
+
+    Rows of at most ``SORT_MAX_N`` entries (the flash shortlist and
+    re-rank) are ranked whole by one stable sort of the order keys. Longer
+    rows take one ``torch.topk`` of k + 1: where the (k+1)-th distance
+    exceeds the k-th, the first k are the reference's set and only their
+    order is fixed (two stable sorts of ``[B, k]``); the rows where the two
+    are equal (a tie across the k-th place, or the two zeros) go through
+    :func:`topk_largest_lowest_index`, after one host synchronisation to
+    find them (:func:`topk_smallest_lowest_index_blocks` hides it behind
+    the next block's work)."""
+    return topk_smallest_lowest_index_blocks([dists], k)
 
 
 def chunked_topk_smallest(q: torch.Tensor, x: torch.Tensor, k: int,
@@ -103,18 +185,15 @@ def chunked_topk_smallest(q: torch.Tensor, x: torch.Tensor, k: int,
                           compute_dtype=torch.float32,
                           x_sq_norms: Optional[torch.Tensor] = None,
                           base_id: int = 0,
-                          n_valid: Optional[int] = None,
-                          lowest_index_ties: bool = False
+                          n_valid: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan + score + k-select over ``x [N, d]`` in chunks of ``chunk_rows``:
     each chunk's scores fold into the running ``[B, k]`` set with one top-k
     over ``[B, k + chunk]``, so peak memory is one chunk, not ``[B, N]``.
     A ragged last chunk needs no padding.
 
-    ``lowest_index_ties``: select as ``jax.lax.top_k`` does, equal distances
-    by ascending row id (:func:`topk_largest_lowest_index`, about twice the
-    selection work). The HNSW build needs it: its graph is held equal to the
-    reference's on corpora with duplicate rows.
+    Equal distances rank by ascending row id, as ``jax.lax.top_k`` ranks
+    them (:func:`topk_smallest_lowest_index`).
 
     ``n_valid``: rows with global id >= n_valid are padding and score +inf
     BEFORE selection (index masking is the only metric-safe pad exclusion).
@@ -127,7 +206,7 @@ def chunked_topk_smallest(q: torch.Tensor, x: torch.Tensor, k: int,
         ids = torch.arange(n, device=dev) + base_id
         if n_valid is not None:
             dists = torch.where(ids[None, :] < n_valid, dists, INF)
-        vals, pos = _smallest(dists, min(k, n), lowest_index_ties)
+        vals, pos = topk_smallest_lowest_index(dists, min(k, n))
         return vals, ids[pos]
     best_v = torch.full((b, k), INF, dtype=torch.float32, device=dev)
     best_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
@@ -140,7 +219,7 @@ def chunked_topk_smallest(q: torch.Tensor, x: torch.Tensor, k: int,
             dists = torch.where(ids[None, :] < n_valid, dists, INF)
         cat_v = torch.cat([best_v, dists], dim=1)
         cat_i = torch.cat([best_i, ids.expand(b, -1)], dim=1)
-        best_v, pos = _smallest(cat_v, k, lowest_index_ties)
+        best_v, pos = topk_smallest_lowest_index(cat_v, k)
         best_i = torch.gather(cat_i, 1, pos)
     return best_v, best_i
 
@@ -153,8 +232,7 @@ def merge_topk(dists: torch.Tensor, ids: torch.Tensor,
         s, b, ks = dists.shape
         dists = dists.permute(1, 0, 2).reshape(b, s * ks)
         ids = ids.permute(1, 0, 2).reshape(b, s * ks)
-    vals, pos = torch.topk(dists, min(k, dists.shape[1]), dim=1,
-                           largest=False)
+    vals, pos = topk_smallest_lowest_index(dists, min(k, dists.shape[1]))
     return vals, torch.gather(ids, 1, pos)
 
 
@@ -208,6 +286,6 @@ def rerank_topk(q: torch.Tensor, x_bf16: torch.Tensor,
             exact = torch.sqrt(torch.clamp_min(exact, 0.0))
     else:
         exact = -torch.einsum("bsd,bd->bs", cand_vecs, q32)
-    vals, pos = torch.topk(exact, k, dim=1, largest=False)
+    vals, pos = topk_smallest_lowest_index(exact, k)
     return vals, torch.gather(cand, 1, pos)
 

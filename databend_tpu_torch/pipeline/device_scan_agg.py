@@ -36,15 +36,19 @@ Design:
 * **Three grouping engines**, chosen by the group grid G as the reference
   chooses (its thresholds were set on a TPU and are kept until measured on
   the card): "mask" (G <= ``device_scan_agg_max_groups``) and "matmul"
-  (G <= ``device_scan_agg_max_groups_matmul``, no MIN/MAX) both stack
-  their count and limb rows into one ``[K, n]`` int32 block and sum it by
-  group id in one launch of the hand-written kernel
-  ``ops.grouped_sums`` (``csrc/grouped_sums.cu``), where the reference
-  builds G masked passes or an int8 one-hot product; "sort" (larger G, up
+  (G <= ``device_scan_agg_max_groups_matmul``, no MIN/MAX) both hand
+  their count and limb rows, a list of K ``[n]`` int32 rows, to one
+  launch of the hand-written kernel ``ops.grouped_sums``
+  (``csrc/grouped_sums.cu``), which sums them by group id, where the
+  reference builds G masked passes or an int8 one-hot product; "sort" (larger G, up
   to ``device_scan_agg_max_groups_sort``) sorts the rows by group id once
   and takes prefix-sum differences at segment ends. MIN / MAX run on rank
   codes: a per-group ``scatter_reduce_`` on the mask engine, a sort by
   (group, code) on the sort engine.
+
+* **Finalize fusion.** HAVING / ORDER BY ... LIMIT above the aggregate
+  run on the ``[K, G]`` grid on the card (``device_fusion``), planned in
+  the host half, so that only the selected groups cross to the host.
 
 * **Errors surface.** A plan the route does not cover declines (``_Bail``)
   and a host-side planning error is counted and declines, as in the
@@ -1162,8 +1166,7 @@ def try_device_scan_agg(plan, fusion=None) -> Optional[DataBlock]:
 
     With ``fusion`` (device_fusion.Fusion) the caller is a Sort/Filter
     node above the aggregate asking for HAVING/ORDER BY/LIMIT applied
-    on-device. Finalize fusion is not ported (``device_fusion``): such a
-    request declines, and the aggregate below it is routed on its own.
+    on-device; the result is then already filtered+ordered+limited.
 
     A plan the route does not cover, or an error while planning on the
     host, declines to the host; an error from the first upload on
@@ -1434,12 +1437,11 @@ def _prepare(plan, scan, filt, snap, max_groups: int,
              matmul_max: int, sort_max: int, dtc=None,
              extra_pred_luts=(), fusion=None) -> Callable[[], DataBlock]:
     """The host half of ``_execute``: compile the plan (raises ``_Bail``
-    for what the route does not cover) and return its device half, a call
-    that uploads, runs the engine per chunk and finalizes."""
+    for what the route does not cover; with ``fusion``, also plans the
+    finalize fusion) and return its device half, a call that uploads, runs
+    the engine per chunk and finalizes."""
     from ..utils.metrics import METRICS
 
-    if fusion is not None:
-        raise _Bail("finalize fusion is not ported (device_fusion)")
     if dtc is None:
         dtc = get_table_columns(scan.table, snap.snapshot_id)
     comp = _Compiler(dtc)
@@ -1571,19 +1573,33 @@ def _prepare(plan, scan, filt, snap, max_groups: int,
             combine.append("max")
 
     n_chunks = max((dtc.n_rows + CHUNK_ROWS - 1) // CHUNK_ROWS, 1)
-    # transfer screen: without finalize fusion the whole [K, G] grid
-    # (plus any distinct grids) crosses the host<->device link —
-    # at G in the millions that alone loses to the host hash-agg
-    try:
-        stx = _settings()
-        max_pull_mb = float(stx.get("device_scan_agg_max_pull_mb")) \
-            if stx is not None else 16.0
-    except Exception:
-        max_pull_mb = 16.0
-    pull = (len(combine) * 4 + len(distinct_slots) * 8) * G * n_chunks
-    if max_pull_mb > 0 and pull > max_pull_mb * (1 << 20):
-        raise _Bail("grid result transfer exceeds"
-                    " device_scan_agg_max_pull_mb")
+    if fusion is None:
+        # transfer screen: without finalize fusion the whole [K, G] grid
+        # (plus any distinct grids) crosses the host<->device link —
+        # at G in the millions that alone loses to the host hash-agg
+        try:
+            stx = _settings()
+            max_pull_mb = float(stx.get("device_scan_agg_max_pull_mb")) \
+                if stx is not None else 16.0
+        except Exception:
+            max_pull_mb = 16.0
+        pull = (len(combine) * 4 + len(distinct_slots) * 8) * G * n_chunks
+        if max_pull_mb > 0 and pull > max_pull_mb * (1 << 20):
+            raise _Bail("grid result transfer exceeds"
+                        " device_scan_agg_max_pull_mb")
+        fp = None
+    else:
+        # finalize fusion: HAVING / ORDER BY ... LIMIT applied on the
+        # [K, G] grid on the card; only the selected rows cross the link
+        from . import device_fusion
+        if n_chunks != 1:
+            raise _Bail("finalize fusion needs a single device chunk")
+        if distinct_slots:
+            raise _Bail("finalize fusion with COUNT(DISTINCT)")
+        if not group:
+            raise _Bail("finalize fusion needs GROUP BY")
+        fp = device_fusion.plan_fusion(plan, fusion, group, decodes,
+                                       main_irs, rows_per_limb, G)
 
     def run() -> DataBlock:
         # a dictionary of no values (an all-NULL column) gets one pad
@@ -1606,6 +1622,14 @@ def _prepare(plan, scan, filt, snap, max_groups: int,
                 else:  # planes_valid
                     env.append(ent["valid"][ci])
             return env
+
+        if fp is not None:
+            present, flat = device_fusion.run_fusion(
+                fp, prog(*chunk_env(0)), group)
+            METRICS.inc("device_scan_agg_queries")
+            plan.__dict__["_device_routed"] = True
+            return _finalize(plan, dtc, group, decodes, agg_irs, flat,
+                             rows_per_limb, None, sliced_slots=present)
 
         acc: Optional[List[np.ndarray]] = None
         for ci in range(n_chunks):

@@ -28,8 +28,10 @@ hand-written group-min scan over a bf16 copy of the corpus, then an exact
 f32 re-rank of the shortlisted groups. A batch of one chunk runs the exact
 program in both modes, as in the reference. l1 has no matmul form and takes
 the plain scan. A filtered statement cannot hand its per-query masks to the
-kernel, so it selects with the plain ``torch.topk`` in both modes, and its
-approximate answer is exact. ``match()`` statements above
+kernel, so it selects with the exact top-k in both modes, and its
+approximate answer is exact. Every exact selection ranks equal distances by
+ascending row id, as the reference's ``lax.top_k(-d, k)`` does
+(``ops.topk.topk_smallest_lowest_index``). ``match()`` statements above
 ``_MatchServer.DEVICE_MIN_DOCS`` rows are served from per-block device BM25
 scorers (``index/inverted/device.py``), text-only and fused with a vector
 distance.
@@ -52,7 +54,8 @@ from ..types import Float32, VectorType
 from ..sql import ast as A
 from ..sql.binder import _DISTANCE_FNS
 from ..sql.parser import Parser
-from ..storage.fuse.table import _exact_topk_program, _rescore_l2
+from ..storage.fuse.table import (_QUERY_CHUNK, _exact_topk_program,
+                                  _rescore_l2)
 from ..utils.cache import CacheManager
 
 
@@ -258,8 +261,6 @@ def match_knn_shape(stmt: A.Statement) -> Optional[_KnnShape]:
                      where_static, where_params)
 
 
-# rows of the [chunk, N] score block: ~1 GB of f32 scores at N = 1M
-_QUERY_CHUNK = 256
 # flash_topk defaults of the reference (ops/flash_topk.py)
 FLASH_TILE = 16384
 FLASH_LANES = 128
@@ -281,14 +282,11 @@ def _cmp(op, c, v):
 
 def _scan_topk_program(Q: torch.Tensor, x: torch.Tensor, k: int, metric: str,
                        n_valid: int):
-    """Whole-batch exact top-k: ``_exact_topk_program`` per query chunk (one
-    ``[chunk, N]`` score block each), the l2 corpus norms computed once.
+    """Whole-batch exact top-k: ``_exact_topk_program`` (one ``[chunk, N]``
+    score block per query chunk) with the l2 corpus norms computed once.
     Returns device (vals ``[B, k]``, ids int32)."""
     norms = torch.sum(x * x, -1) if metric == "l2" else None
-    parts = [_exact_topk_program(qb, x, k, metric, n_valid, x_sq_norms=norms)
-             for qb in torch.split(Q, _QUERY_CHUNK)]
-    return (torch.cat([v for v, _ in parts]),
-            torch.cat([i for _, i in parts]))
+    return _exact_topk_program(Q, x, k, metric, n_valid, x_sq_norms=norms)
 
 
 def _scan_topk_filtered_program(Q: torch.Tensor, x: torch.Tensor, k: int,
@@ -301,22 +299,22 @@ def _scan_topk_filtered_program(Q: torch.Tensor, x: torch.Tensor, k: int,
     the caller (a query may match fewer than k rows). Reference: filter +
     vector index pushdown, pushdown.rs:167-207."""
     from ..ops.distance import pairwise_distance
+    from ..ops.topk import topk_smallest_lowest_index_blocks
     norms = torch.sum(x * x, -1) if metric == "l2" else None
     base = (torch.arange(x.shape[0], device=x.device) < n_valid) & smask
-    vals, ids = [], []
-    for start in range(0, Q.shape[0], _QUERY_CHUNK):
-        qb = Q[start:start + _QUERY_CHUNK]
-        d = pairwise_distance(qb, x, metric, x_sq_norms=norms,
-                              x_normalized=(metric == "cosine"))
-        m = base[None, :]
-        for op, col, fv in zip(f_ops, fcols, fvals):
-            m = m & _cmp(op, col[None, :],
-                         fv[start:start + _QUERY_CHUNK, None])
-        v, i = torch.topk(d.masked_fill_(~m, float("inf")), k, dim=1,
-                          largest=False)
-        vals.append(v)
-        ids.append(i)
-    vals, ids = torch.cat(vals), torch.cat(ids)
+
+    def scores():
+        for start in range(0, Q.shape[0], _QUERY_CHUNK):
+            qb = Q[start:start + _QUERY_CHUNK]
+            d = pairwise_distance(qb, x, metric, x_sq_norms=norms,
+                                  x_normalized=(metric == "cosine"))
+            m = base[None, :]
+            for op, col, fv in zip(f_ops, fcols, fvals):
+                m = m & _cmp(op, col[None, :],
+                             fv[start:start + _QUERY_CHUNK, None])
+            yield d.masked_fill_(~m, float("inf"))
+
+    vals, ids = topk_smallest_lowest_index_blocks(scores(), k)
     if metric == "l2":
         # +inf marks "fewer than k matches" — survive the re-score
         vals = torch.where(torch.isinf(vals), vals, _rescore_l2(Q, x, ids))

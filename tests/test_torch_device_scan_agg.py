@@ -385,9 +385,9 @@ def test_snapshot_isolation(ctxs):
 
 
 def test_topn_above_aggregate(ctxs):
-    """ORDER BY ... LIMIT over a routed aggregate: the reference fuses it
-    on the device, the port finishes it on the host (finalize fusion is
-    not ported); the rows are the same, route on or off."""
+    """ORDER BY ... LIMIT over a routed aggregate: both packages fuse it
+    on the device (pipeline/device_fusion.py); the rows are the same, route
+    on or off."""
     u = np.sort(np.random.default_rng(0).integers(0, 5, 1000))
     counts = sorted(zip(*np.unique(u, return_counts=True)))
     want = [(int(a), int(b)) for a, b in counts]

@@ -44,9 +44,16 @@ PORT_OWN = {
     "parallel/exchange.py": "names only, each raises if called (item 11b)",
     "pipeline/device_scan_agg.py": "resident columns and limb sums on torch, "
                                    "the grouped sums through the CUDA kernel; "
-                                   "device errors propagate, fusion declines",
-    "pipeline/device_join_agg.py": "declines to the host (ROADMAP item 12)",
-    "pipeline/device_fusion.py": "the Fusion request type only (item 12)",
+                                   "device errors propagate, the fused "
+                                   "branch planned in the host half",
+    "pipeline/device_join_agg.py": "the code gather and the LUT uploads on "
+                                   "torch; each route's host half declines, "
+                                   "the device half it returns propagates "
+                                   "its errors",
+    "pipeline/device_fusion.py": "HAVING / top-n on the grid on torch "
+                                 "(stable sort passes for the multi-key "
+                                 "sort, checked gathers); a float HAVING "
+                                 "constant compares the finalized float64",
     "pipeline/executor.py": "_brute_force_scores on torch",
     "expression/functions/vector_fns.py": "_rowwise device branch on torch",
     "storage/fuse/table.py": "vector columns and exact scans on torch",

@@ -192,8 +192,7 @@ def test_chunked_lowest_index_ties_signed_zeros_match_jax(chunk_rows):
     want = jt.chunked_topk_smallest(jnp.asarray(q), jnp.asarray(x), 40, "ip",
                                     chunk_rows=chunk_rows)
     got = tt.chunked_topk_smallest(torch.from_numpy(q), torch.from_numpy(x),
-                                   40, "ip", chunk_rows=chunk_rows,
-                                   lowest_index_ties=True)
+                                   40, "ip", chunk_rows=chunk_rows)
     wv, wi = (np.asarray(a) for a in want)
     zeros = wv[:2] == 0.0
     assert np.signbit(wv[:2][zeros]).any() and (~np.signbit(
