@@ -22,13 +22,22 @@ Phases (any failure exits non-zero and prints no result line):
      wide embeddings (D in {400, 768, 1536}), and on a 262,144-row corpus
      with tile = 4096, tile = 128 (one step per tile; 300 more launches must
      repeat the first bit for bit) and D = 48;
-     impact_bm25_scores (rtol IMPACT_RTOL on finite scores, the same -inf
-     pattern; one compare-select per real doc slot and real query term at
-     132 SMs x 64 int32 lanes x 1.98 GHz): on a
+     impact_bm25_scores (bit-equal to its plain version, and rtol
+     IMPACT_RTOL on finite scores with the same -inf pattern; its bound
+     reads sat only at the slots some query term asks for, and counts one
+     f32 product and sum per (query, doc, real query term) at 67 TFLOP/s;
+     its plan printed: units of queries, chunks of terms, sub-strips of a
+     strip, blocks a unit's items): on a
      block of 262,144 docs at (L = 8, b = 128, m = 4) OR and AND, the same
      fused with a D = 128 distance term (cosine and l2), (L = 8, b = 8),
      (L = 64, b = 128, m = 8), (L = 512, b = 8, m = 4), b = 1, and a block
-     that ends in 1,000 pad docs;
+     that ends in 1,000 pad docs; 300 more launches at (L = 8, b = 8) and
+     (L = 8, b = 128) must repeat the first bit for bit; a block where every
+     doc has the same terms (every row of the output one value); batches
+     whose vocabulary takes more than one unit: (L = 8, b = 128, m = 16,
+     groups of two terms), four units, and (L = 64, b = 16, m = 128, 100
+     real terms a query), two units of two chunks; the fused cosine shape at
+     an odd n_pad (unaligned rows);
      impact_bm25_topk, the selecting entry point of the same source (ids
      equal and values bit-equal to its plain version at k = 1, 10 and its
      largest k; one read of the layout, the query operands and the
@@ -87,9 +96,12 @@ Phases (any failure exits non-zero and prints no result line):
      impact_bm25_topk must have been launched once per block and batch,
      impact_bm25_scores never; the device memory a B = 128 text call
      takes above what was resident must stay under one [128, 262,144] f32
-     block. Then a prepared ``match()`` with a LIMIT one above the
-     selecting kernel's largest k, at B = 8: impact_bm25_scores launched
-     once per block, rows and scores equal to the generic path;
+     block. Then a prepared ``match()`` and the fused statement with a
+     LIMIT one above the selecting kernel's largest k, at B = 8:
+     impact_bm25_scores launched once per block each, rows (and the text
+     statement's scores) equal to the generic path (the fused statement's
+     rows but where the generic ranking values of two ranks lie within
+     1e-6: the two paths round the fused value apart);
   7. [hnsw]: first the port's build and search on the card against the same
      code on CPU tensors (5,000 integer rows with duplicates, and a corpus
      of equal rows: links and ids equal, so the card's sorts, minima and
@@ -161,6 +173,7 @@ CLUSTER_ROWS = 262_144  # the reference's k-means batch (index/kmeans.py)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 INT32_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x int32 lanes x boost clock
+F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores, data sheet
 IMPACT_RTOL = 1e-6     # kernel vs plain: the same f32 operations in the same order
 BLOCK_ROWS = 262_144   # rows per block of the [match] deployment
 MATCH_ROWS = 1_000_000
@@ -208,6 +221,29 @@ def cuda_ms(fn, reps=5) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=20) -> float:
+    """The device time of one call of ``fn``: ``reps`` calls captured in a
+    CUDA graph and replayed, timed with CUDA events, so that no host time
+    lies between the launches (a small launch takes less time on the card
+    than its wrapper on the host)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -375,12 +411,14 @@ def phase_kernels(card):
     return results
 
 
-def impact_operands(g, n_pad, n_docs, slots, b, m, and_mode, dim=0):
+def impact_operands(g, n_pad, n_docs, slots, b, m, and_mode, dim=0,
+                    n_real=None, group_terms=1):
     """A block's doc-major layout and a packed query batch, on the card, in
     the scorer's contract: a term at most once per doc (an arithmetic
     progression modulo a prime vocabulary), docs of L/4 to L/2 terms, pad
-    docs and pad slots -2; queries of m/2 distinct-group terms, then pad
-    terms (-1), packed by ``pack_query_terms``.
+    docs and pad slots -2; queries of ``n_real`` (m/2 unless given) terms
+    in groups of ``group_terms``, then pad terms (-1), packed by
+    ``pack_query_terms``.
     With ``dim`` a [b, n_pad] cosine-style distance term as well."""
     vocab = {8: 17, 64: 131, 512: 1031}[slots]
     dev = "cuda"
@@ -397,12 +435,14 @@ def impact_operands(g, n_pad, n_docs, slots, b, m, and_mode, dim=0):
     term_ids = torch.where(real, term_ids, -2)
     sat = torch.where(real, 0.5 + 1.5 * torch.rand(
         (n_pad, slots), generator=g, device=dev), 0.0)
-    live = torch.arange(m, device=dev)[None, :].expand(b, m) < m // 2
+    live = torch.arange(m, device=dev)[None, :].expand(b, m) < (
+        m // 2 if n_real is None else n_real)
     qterms = torch.where(live, rint(0, vocab, (b, m)), -1)
     idf = torch.where(live, 0.5 + 2.5 * torch.rand(
         (b, m), generator=g, device=dev), 0.0)
     qgroup = torch.where(live, torch.arange(
-        m, device=dev, dtype=torch.int32)[None, :].expand(b, m), -1)
+        m, device=dev, dtype=torch.int32)[None, :].expand(b, m) // group_terms,
+        -1)
     need = torch.full((b,), float(m // 2 if and_mode else 1), device=dev)
     dist = None
     if dim:
@@ -418,35 +458,52 @@ def impact_operands(g, n_pad, n_docs, slots, b, m, and_mode, dim=0):
 
 def impact_bound(ops, dist, out_bytes=None):
     """(ms, "bytes" or "operations"): one read of the layout, the query
-    operands and the distance term plus one write of the output (the
-    [b, n_pad] f32 scores, or ``out_bytes``) at the memory rate, or one
-    compare-select per (real doc slot, real query term) of this run's data at
-    the int32 instruction rate, whichever is larger."""
-    term_ids, qpack = ops[0], ops[2]
+    operands and the distance term plus one write of the output at the
+    memory rate, or the operations of this run's data at their peak,
+    whichever is larger. impact_bm25_scores (``out_bytes`` None: the
+    [b, n_pad] f32 scores): of ``sat`` only the slots whose term some query
+    asks for, what this data needs; one f32 product and sum per (query,
+    doc, real query term). impact_bm25_topk (its [b, k] result in
+    ``out_bytes``): all of ``sat``; one compare-select per (real doc slot,
+    real query term) at the int32 instruction rate, what its scoring
+    does."""
+    term_ids, sat, qpack = ops[:3]
     n_pad = term_ids.shape[0]
+    terms = qpack[..., 0]
+    real_terms = int((terms >= 0).sum())
+    nbytes = sum(t.numel() * t.element_size() for t in ops) \
+        + (dist.numel() * 4 if dist is not None else 0)
     if out_bytes is None:
         out_bytes = qpack.shape[0] * n_pad * 4
-    nbytes = sum(t.numel() * t.element_size() for t in ops) + out_bytes \
-        + (dist.numel() * 4 if dist is not None else 0)
+        nbytes -= sat.numel() * 4 - 4 * int(
+            torch.isin(term_ids, terms[terms >= 0]).sum())
+        t_ops = 2 * real_terms * n_pad / F32_FLOPS_PER_S * 1e3
+    else:
+        real_slots = int((term_ids >= 0).sum())
+        t_ops = real_slots * real_terms / INT32_OPS_PER_S * 1e3
+    nbytes += out_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    real_slots = int((term_ids >= 0).sum())
-    real_terms = int((qpack[..., 0] >= 0).sum())
-    t_ops = real_slots * real_terms / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def hold_impact_kernel(card, what, ops, dist, w_s=1.0, w_d=0.0):
+def hold_impact_kernel(card, what, ops, dist, w_s=1.0, w_d=0.0, repeats=0):
     """One launch of impact_bm25_scores against its plain version on the
-    same tensors (IMPACT_RTOL on finite scores, the same -inf pattern), then
-    both timed beside the bound.
+    same tensors (bit-equal; IMPACT_RTOL on finite scores and the same -inf
+    pattern stated beside it), ``repeats`` more launches that must give the
+    same bits, then both timed beside the bound; the plan printed.
     Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
     from databend_tpu_torch.ops.impact_bm25 import (
-        _impact_bm25_scores_plain, impact_bm25_scores)
+        _impact_bm25_scores_plain, _scores_plan, impact_bm25_scores,
+        strip_subs)
     before = impact_bm25_scores.launches
     got = impact_bm25_scores(*ops, dist=dist, w_s=w_s, w_d=w_d)
     torch.cuda.synchronize()
     check(impact_bm25_scores.launches == before + 1, f"{what}: no launch")
     want = _impact_bm25_scores_plain(*ops, dist, w_s, w_d)
+    check(same_bits(got, want), f"{what}: kernel not bit-equal to plain")
+    for i in range(repeats):
+        check(same_bits(impact_bm25_scores(*ops, dist=dist, w_s=w_s, w_d=w_d),
+                        got), f"{what}: launch {i + 2} differs from the first")
     fin = torch.isfinite(want)
     check(torch.equal(torch.isfinite(got), fin), f"{what}: -inf pattern differs")
     check(bool(fin.any()) and not bool(fin.all()),
@@ -458,13 +515,24 @@ def hold_impact_kernel(card, what, ops, dist, w_s=1.0, w_d=0.0):
     check(rel <= IMPACT_RTOL, f"kernel vs plain {what}: rel err {rel}")
     share = fin.float().mean().item()
     del got, want, fin
-    ms = cuda_ms(lambda: impact_bm25_scores(*ops, dist=dist, w_s=w_s, w_d=w_d))
+    call = functools.partial(impact_bm25_scores, *ops, dist=dist, w_s=w_s,
+                             w_d=w_d)
+    ms, call_ms = device_ms(call), cuda_ms(call)
     plain_ms = cuda_ms(
         lambda: _impact_bm25_scores_plain(*ops, dist, w_s, w_d), reps=2)
     bound_ms, bound_by = impact_bound(ops, dist)
-    print(f"[kernel] impact_bm25_scores {what}: max_abs_err {err} (max rel "
-          f"{rel}, {100 * share:.1f}% of cells matched), kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+    plan = _scores_plan(ops[0].shape[0], *ops[2].shape[:2])
+    rows = int(ops[2][..., 3].max()) + 1   # the largest unit's vocabulary
+    rep = f", {repeats} repeats equal" if repeats else ""
+    print(f"[kernel] impact_bm25_scores {what}: bit-equal to the plain "
+          f"version{rep}, max_abs_err {err} (max rel {rel}, "
+          f"{100 * share:.1f}% of cells matched); plan {plan.units} unit(s) "
+          f"of {plan.queries} queries, {plan.chunks} chunk(s) of "
+          f"{plan.terms} terms, strips of {plan.subs} x 32 docs (of "
+          f"{strip_subs(plan, rows)} x 32 for {rows} vocabulary rows), "
+          f"{plan.qsplit} block(s) a unit's items; kernel {ms:.4f} ms "
+          f"on the card ({call_ms:.4f} ms a call of the wrapper), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
           f"{100 * bound_ms / ms:.0f}% reached) [{card}]")
     return err, ms, plain_ms, bound_ms, bound_by
 
@@ -511,7 +579,8 @@ def hold_impact_topk(card, what, ops, dist, w_s=1.0, w_d=0.0, repeats=0,
               f"to the plain version at k = 1, {K}, {MAX_K} "
               f"({100 * matched:.1f}% of the top {K} matched) [{card}]")
         return None
-    ms = cuda_ms(lambda: impact_bm25_topk(*ops, K, dist, w_s, w_d))
+    call = functools.partial(impact_bm25_topk, *ops, K, dist, w_s, w_d)
+    ms, call_ms = device_ms(call), cuda_ms(call)
     plain_ms = cuda_ms(
         lambda: _impact_bm25_topk_plain(*ops, K, dist, w_s, w_d), reps=2)
     pair_ms = cuda_ms(lambda: topk_largest_lowest_index(
@@ -520,7 +589,8 @@ def hold_impact_topk(card, what, ops, dist, w_s=1.0, w_d=0.0, repeats=0,
     rep = f", {repeats} repeats equal" if repeats else ""
     print(f"[kernel] impact_bm25_topk {what}: ids and values bit-equal to the "
           f"plain version at k = 1, {K}, {MAX_K}{rep} ({100 * matched:.1f}% "
-          f"of the top {K} matched); k = {K}: kernel {ms:.4f} ms, plain "
+          f"of the top {K} matched); k = {K}: kernel {ms:.4f} ms on the card "
+          f"({call_ms:.4f} ms a call of the wrapper), plain "
           f"{plain_ms:.4f} ms, the scores kernel + tie-rule top-k {pair_ms:.4f}"
           f" ms, bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.0f}"
           f"% reached) [{card}]")
@@ -528,10 +598,13 @@ def hold_impact_topk(card, what, ops, dist, w_s=1.0, w_d=0.0, repeats=0,
 
 
 def phase_impact_kernels(card):
-    """Both entry points of csrc/impact_bm25_scores.cu at nine shapes;
-    the selecting one also on a block where every doc ties and on AND
-    queries with groups no doc can match.
+    """Both entry points of csrc/impact_bm25_scores.cu at nine shapes and
+    on a block where every doc ties; the scores entry point also on batches
+    of more than one unit, the selecting one on AND queries with groups no
+    doc can match.
     Returns ({shape: scores result}, {shape: topk result})."""
+    from databend_tpu_torch.ops.impact_bm25 import (
+        impact_bm25_scores, pack_query_terms)
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     n = BLOCK_ROWS
     results, topk = {}, {}
@@ -556,22 +629,48 @@ def phase_impact_kernels(card):
             w_s, w_d = -0.04, 1.0
         what = f"{name} n_pad={n} n_docs={n_docs} L={slots} b={b} m={m}"
         results[(name, slots, b, m)] = hold_impact_kernel(
-            card, what, ops, dist, w_s, w_d)
+            card, what, ops, dist, w_s, w_d,
+            repeats=300 if (name, slots) == ("OR", 8) and b in (8, 128)
+            else 0)
         # the serving shape once more, 300 times over
         topk[(name, slots, b, m)] = hold_impact_topk(
             card, what, ops, dist, w_s, w_d,
             repeats=300 if (name, slots, b) == ("OR", 8, 128) else 0)
         del ops, dist
         torch.cuda.empty_cache()
+    # vocabularies of more than one unit: four units of 32 queries whose 8
+    # real terms form groups of two; two units of 8 queries whose 100 real
+    # terms run over two chunks of 64
+    for name, n_docs, slots, b, m, n_real, group_terms in (
+            ("OR units, groups of two terms", n, 8, 128, 16, None, 2),
+            ("OR chunks", n - 1000, 64, 16, 128, 100, 1)):
+        ops, _ = impact_operands(g, n, n_docs, slots, b, m, False,
+                                 n_real=n_real, group_terms=group_terms)
+        hold_impact_kernel(card, f"{name} n_pad={n} n_docs={n_docs} L={slots}"
+                                 f" b={b} m={m}", ops, None)
+        del ops
+    # an odd n_pad: rows of out and dist not 16-byte aligned
+    ops, dist = impact_operands(g, n - 1, n - 1, 8, 128, 4, False, DIM)
+    hold_impact_kernel(card, f"fused cosine n_pad={n - 1} L=8 b=128 m=4",
+                       ops, dist, 0.04, -1.0)
+    del ops, dist
     # every doc the same terms and saturations: one score class of 262,144
     ops, _ = impact_operands(g, n, n, 8, 128, 4, False)
     term_ids, sat, qpack, need = ops
     term_ids = term_ids[:1].expand(n, -1).contiguous()
     sat = sat[:1].expand(n, -1).contiguous()
-    qpack = qpack.clone()
-    qpack[::2, 0, 0] = term_ids[0, 0]
-    hold_impact_topk(card, f"every doc ties n_pad={n} L=8 b=128 m=4",
-                     (term_ids, sat, qpack, need), None, timed=False)
+    qterms = qpack[..., 0].clone()
+    qterms[::2, 0] = term_ids[0, 0]
+    qpack = pack_query_terms(qterms, qpack[..., 1].view(torch.float32),
+                             qpack[..., 2])
+    what = f"every doc ties n_pad={n} L=8 b=128 m=4"
+    hold_impact_kernel(card, what, (term_ids, sat, qpack, need), None)
+    tied = impact_bm25_scores(term_ids, sat, qpack, need)
+    check(same_bits(tied, tied[:, :1].expand(-1, n)),
+          f"{what}: docs with equal rows got different scores")
+    del tied
+    hold_impact_topk(card, what, (term_ids, sat, qpack, need), None,
+                     timed=False)
     # AND with more groups than a query has terms: no doc of those matches
     ops, _ = impact_operands(g, n, n, 8, 128, 4, True)
     need = ops[3].clone()
@@ -1154,6 +1253,50 @@ def phase_match(card, profile):
                   f"impact_bm25_scores launches {scores_launches} = "
                   f"{n_blocks} blocks x 1 batch, impact_bm25_topk 0; rows "
                   f"and scores equal the generic path at (0, 7) [{card}]")
+            # the same above the largest k, fused: the kernel's dist operand
+            # through SQL (the served fused shape projects no score)
+            wide_fused = fused_sql.replace("LIMIT 10", f"LIMIT {MAX_K + 1}")
+            pwf = ctx.prepare(wide_fused.format(t="?", v="?"))
+            impact_bm25_scores.launches = 0
+            impact_bm25_topk.launches = 0
+            wide = pwf.execute_batch([(t, list(map(float, q)))
+                                      for t, q in zip(pool[:8], Q[:8])])
+            fused_launches = impact_bm25_scores.launches
+            check(pwf._match is not None and pwf._match.shape.fused,
+                  f"fused LIMIT {MAX_K + 1}: not served")
+            check(fused_launches == n_blocks and impact_bm25_topk.launches
+                  == 0, f"fused LIMIT {MAX_K + 1}: launches scores "
+                  f"{fused_launches}, topk {impact_bm25_topk.launches}")
+            swaps = 0
+            for i in (0, 7):
+                # the generic path's ranking values beside its rows
+                want = ctx.sql(wide_fused.replace(
+                    "SELECT id FROM", "SELECT id, 0.04 * score() - "
+                    "cosine_distance(emb, {v}) FROM").format(
+                        t=f"'{pool[i]}'", v=vec(Q[i]))).rows()
+                got = [r[0] for r in wide[i].rows()]
+                vals = [r[1] for r in want]
+                check(len(got) == len(want) == MAX_K + 1,
+                      f"fused LIMIT {MAX_K + 1} [{i}]: {len(got)} rows")
+                for j, (g_row, (w_row, _)) in enumerate(zip(got, want)):
+                    if g_row == w_row:
+                        continue
+                    # two paths that round the fused value apart may order
+                    # a near-tie apart: the row must sit within 1e-6 of
+                    # this rank's value in the generic ranking
+                    near = [k for k in range(max(0, j - 2), min(
+                        len(want), j + 3)) if want[k][0] == g_row]
+                    swaps += 1
+                    check(near and abs(vals[near[0]] - vals[j]) <= 1e-6,
+                          f"fused LIMIT {MAX_K + 1} [{i}] rank {j}: row "
+                          f"{g_row} != generic {w_row}")
+            scores_launches += fused_launches
+            print(f"[match] prepared fused 0.04*score() - cosine_distance "
+                  f"LIMIT {MAX_K + 1} B=8: impact_bm25_scores launches "
+                  f"{fused_launches} = {n_blocks} blocks x 1 batch, "
+                  f"impact_bm25_topk 0; rows equal the generic path at "
+                  f"(0, 7) but for {swaps} rank(s) of values within 1e-6 "
+                  f"[{card}]")
 
             for what, sql in (("match()", text_sql.format(t="'{t}'")),
                               ("fused", None)):

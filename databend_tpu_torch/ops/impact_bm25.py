@@ -15,7 +15,7 @@ For doc ``d`` and query ``q``::
                 -inf                        otherwise
 
 The query batch travels as ``qpack [b, m, 4]`` int32, one 16-byte entry
-``{term id, idf (f32 bits), group id, 0}`` per query term
+``{term id, idf (f32 bits), group id, vocabulary row}`` per query term
 (``pack_query_terms``): the kernel reads an entry with one load. The terms of
 one group are adjacent along ``j`` (``ImpactBM25._pack_queries`` lists them
 group by group), so the number of matched groups is the number of runs of
@@ -24,13 +24,24 @@ most one slot of a doc (the doc-major layout writes each posting once); pad
 docs and pad slots hold -2, pad terms -1 (group -1) and follow a query's real
 terms, so padding never matches; ``sat`` holds no NaN.
 
+The kernel looks each doc slot up once in the vocabulary of the batch
+instead of comparing it with every query term. The queries run in units of
+``gq`` queries and chunks of ``mc`` terms (``query_units``: a function of
+``b`` and ``m`` alone, the whole batch up to ``b * m = UNIT_ENTRIES``); the
+fourth word of an entry is the row of its term in the sorted distinct real
+terms of its unit and chunk, -1 on pad terms. ``pack_query_terms`` computes
+it on the host and checks it (``check_vocabulary``); the plain version does
+not read it. ``_scores_plan`` adds how the launch is cut (strips of 32-doc
+sub-strips, blocks a unit's items); ``chip_smoke.py`` prints it.
+
 On a CUDA tensor ``impact_bm25_scores`` launches the hand-written kernel
 ``csrc/impact_bm25_scores.cu`` or raises; on a CPU tensor it runs the plain
 PyTorch version ``_impact_bm25_scores_plain``: the reference's composition,
 one term column at a time and tiled over docs so that no intermediate passes
 ``PLAIN_BYTES``. Both add the terms in index order without fused
-multiply-adds, so docs with equal terms and saturations get bit-equal scores
-(the tie rule of the top-k after it depends on that).
+multiply-adds: the kernel's output is bit-equal to the plain version's, and
+docs with equal terms and saturations get equal scores (the tie rule of the
+top-k after it depends on that).
 
 ``impact_bm25_topk`` is the function the serving path calls: the same scores
 and their ``k`` largest per query, in ``jax.lax.top_k``'s order
@@ -46,7 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -57,17 +68,144 @@ from .topk import topk_largest_lowest_index
 PLAIN_BYTES = 1 << 28     # the plain version's largest intermediate
 MAX_SLOTS = 512           # the kernel keeps 32 docs x L slots in shared memory
 MAX_K = 128               # the selecting kernel's largest k (its MAX_K)
+UNIT_ENTRIES = 512        # the scores kernel's (query, term) entries a unit
+CHUNKED_QUERIES = 8       # queries a unit of more than one chunk holds
+SCORES_WARPS = 16         # warps of a scores block
+MAX_SUBS = 8              # 32-doc sub-strips of a scores strip
+SCORES_SMEM = 112 * 1024  # a scores block's shared memory: two an SM
+FILL_BLOCKS = 2 * 132     # scores blocks the card holds at once
 NEG_INF = float("-inf")
+
+
+def query_units(b: int, m: int):
+    """``(gq, mc)``: the scores kernel takes the batch in units of ``gq``
+    queries and each query's terms in chunks of ``mc``, ``gq * mc <=
+    UNIT_ENTRIES``; all ``m`` terms in one chunk while ``CHUNKED_QUERIES``
+    queries of them fit, else chunks of ``UNIT_ENTRIES // gq`` terms for
+    units of that many queries, each carried across its chunks."""
+    if m * min(b, CHUNKED_QUERIES) <= UNIT_ENTRIES:
+        return min(b, UNIT_ENTRIES // m), m
+    gq = min(b, CHUNKED_QUERIES)
+    return gq, UNIT_ENTRIES // gq
+
+
+class ScoresPlan(NamedTuple):
+    """How ``impact_bm25_scores`` runs a shape: ``units`` of ``queries``
+    queries (one row of blocks each), ``chunks`` of ``terms`` terms, strips
+    of ``subs`` 32-doc sub-strips, a unit's (query, sub-strip) items, four
+    to a warp, over ``qsplit`` blocks."""
+    queries: int
+    terms: int
+    units: int
+    chunks: int
+    subs: int
+    qsplit: int
+
+
+def _scores_smem(gq: int, mc: int, subs: int) -> int:
+    """csrc/impact_bm25_scores.cu:scores_smem: the table (gq * mc + 1 rows
+    of 32 * subs + 4 floats), 12 bytes an entry, 12 a query."""
+    return (gq * mc + 1) * (32 * subs + 4) * 4 + gq * mc * 12 + gq * 12
+
+
+def _scores_plan(n_pad: int, b: int, m: int) -> ScoresPlan:
+    """The units of ``query_units``; the most sub-strips (up to
+    ``MAX_SUBS``) whose table fits ``SCORES_SMEM`` (with more than one
+    chunk, one quad of items a warp); a unit's quads split over blocks
+    while the strips alone do not fill the card."""
+    gq, mc = query_units(b, m)
+    units, chunks = -(-b // gq), -(-m // mc)
+    subs = MAX_SUBS
+    while subs > 1 and (_scores_smem(gq, mc, subs) > SCORES_SMEM
+                        or 32 * subs >= 2 * n_pad
+                        or (chunks > 1 and gq * subs > 4 * SCORES_WARPS)):
+        subs //= 2
+    strips = -(-n_pad // (32 * subs))
+    qsplit = 1
+    if chunks == 1 and strips * units < FILL_BLOCKS:
+        quads = -(-gq * subs // 4)
+        qsplit = min(-(-FILL_BLOCKS // (strips * units)),
+                     -(-quads // SCORES_WARPS))
+    return ScoresPlan(gq, mc, units, chunks, subs, qsplit)
+
+
+def strip_subs(plan: ScoresPlan, rows: int) -> int:
+    """The 32-doc sub-strips a strip of the kernel takes for a unit whose
+    vocabulary has ``rows`` rows: with one chunk, the plan's strips widened
+    (powers of two, up to ``MAX_SUBS``) while ``rows + 1`` table rows fit
+    the table the plan sized (csrc/impact_bm25_scores.cu:scores_kernel)."""
+    subs = plan.subs
+    if plan.chunks > 1:
+        return subs
+    words = (plan.queries * plan.terms + 1) * (32 * subs + 4)
+    fit = (words // (rows + 1) - 4) // 32
+    while subs < MAX_SUBS and 2 * subs <= fit:
+        subs *= 2
+    return subs
+
+
+def _units(b: int, m: int) -> np.ndarray:
+    """``[b, m]``: the (unit, chunk) each entry belongs to, numbered."""
+    gq, mc = query_units(b, m)
+    chunks = -(-m // mc)
+    return (np.arange(b)[:, None] // gq) * chunks + np.arange(m)[None, :] // mc
+
+
+def vocabulary_rows(qterms: np.ndarray) -> np.ndarray:
+    """``[b, m]`` int32: the row of each real term in the sorted distinct real
+    terms of its unit and chunk (``query_units``), -1 on pad terms."""
+    b, m = qterms.shape
+    real = qterms >= 0
+    key = (_units(b, m).astype(np.int64) << 32) | qterms.astype(np.int64)
+    uniq, inv = np.unique(key[real], return_inverse=True)
+    unit = uniq >> 32
+    rows = np.arange(len(uniq)) - np.searchsorted(unit, unit)
+    out = np.full((b, m), -1, np.int32)
+    out[real] = rows[inv.reshape(-1)]
+    return out
+
+
+def check_vocabulary(qpack: np.ndarray) -> None:
+    """Raise ValueError unless the fourth word of every entry of ``qpack``
+    ``[b, m, 4]`` is its term's row in the sorted distinct real terms of its
+    unit and chunk, and -1 on pad terms: rows in range (below the number of
+    distinct terms), consistent (one row a term, one term a row) and
+    sorted (rows in the order of their terms)."""
+    terms, rows = qpack[..., 0], qpack[..., 3]
+    b, m = terms.shape
+    real = terms >= 0
+    if (rows[~real] != -1).any():
+        raise ValueError("impact_bm25: vocabulary row of a pad term is not -1")
+    unit = _units(b, m)[real]
+    t, r = terms[real].astype(np.int64), rows[real].astype(np.int64)
+    distinct = np.unique((unit.astype(np.int64) << 32) | t) >> 32
+    size = np.bincount(distinct, minlength=int(unit.max(initial=-1)) + 1)
+    if (r < 0).any() or (r >= size[unit]).any():
+        raise ValueError("impact_bm25: vocabulary row out of range")
+    order = np.lexsort((t, r, unit))
+    unit, t, r = unit[order], t[order], r[order]
+    same_unit = unit[1:] == unit[:-1]
+    same_row = same_unit & (r[1:] == r[:-1])
+    if (t[1:] != t[:-1])[same_row].any() \
+            or (t[1:] == t[:-1])[same_unit & ~same_row].any():
+        raise ValueError("impact_bm25: vocabulary inconsistent with the "
+                         "query terms")
+    if (t[1:] < t[:-1])[same_unit].any():
+        raise ValueError("impact_bm25: vocabulary not sorted")
 
 
 def pack_query_terms(qterms, idf, qgroup):
     """``qterms``, ``qgroup`` ``[b, m]`` int32 and ``idf [b, m]`` f32 (numpy
-    arrays or tensors) -> ``qpack [b, m, 4]`` int32 of the same kind."""
+    arrays or tensors) -> ``qpack [b, m, 4]`` int32 of the same kind, on the
+    same device, its vocabulary rows built and checked on the host."""
     if isinstance(qterms, torch.Tensor):
-        return torch.stack((qterms, idf.view(torch.int32), qgroup,
-                            torch.zeros_like(qterms)), dim=-1)
-    return np.stack((qterms, idf.view(np.int32), qgroup,
-                     np.zeros_like(qterms)), axis=-1)
+        return torch.from_numpy(pack_query_terms(
+            *(t.cpu().numpy() for t in (qterms, idf, qgroup)))
+        ).to(qterms.device)
+    qpack = np.stack((qterms, idf.view(np.int32), qgroup,
+                      vocabulary_rows(qterms)), axis=-1)
+    check_vocabulary(qpack)
+    return qpack
 
 
 def _check_inputs(term_ids, sat, qpack, need, dist):
@@ -172,7 +310,8 @@ def impact_bm25_scores(term_ids: torch.Tensor, sat: torch.Tensor,
     """``[b, n_pad]`` f32 scores (see the module doc).
 
     term_ids ``[n_pad, L]`` int32 and sat ``[n_pad, L]`` f32: the block's
-    doc-major layout; qpack ``[b, m, 4]`` int32 (``pack_query_terms``) and
+    doc-major layout; qpack ``[b, m, 4]`` int32 (``pack_query_terms``: the
+    kernel trusts its vocabulary rows, which this wrapper does not read) and
     need ``[b]`` f32: the packed query batch; dist ``[b, n_pad]`` f32 with the
     weights ``w_s``, ``w_d`` for the fused text+vector ranking."""
     _check_inputs(term_ids, sat, qpack, need, dist)
@@ -183,6 +322,7 @@ def impact_bm25_scores(term_ids: torch.Tensor, sat: torch.Tensor,
                            dist)
     n_pad, slots = term_ids.shape
     b, m = qpack.shape[:2]
+    plan = _scores_plan(n_pad, b, m)
     lib = _launcher()
     out = torch.empty((b, n_pad), dtype=torch.float32, device=term_ids.device)
     with torch.cuda.device(term_ids.device):
@@ -190,7 +330,8 @@ def impact_bm25_scores(term_ids: torch.Tensor, sat: torch.Tensor,
         err = lib.impact_bm25_scores_launch(
             term_ids.data_ptr(), sat.data_ptr(), qpack.data_ptr(),
             need.data_ptr(), dist.data_ptr() if dist is not None else None,
-            float(w_s), float(w_d), out.data_ptr(), n_pad, slots, b, m, stream)
+            float(w_s), float(w_d), out.data_ptr(), n_pad, slots, b, m,
+            plan.queries, plan.terms, plan.subs, plan.qsplit, stream)
     _raise_on(lib, "impact_bm25_scores", err)
     impact_bm25_scores.launches += 1
     return out
@@ -254,9 +395,10 @@ def impact_bm25_topk(term_ids: torch.Tensor, sat: torch.Tensor,
 impact_bm25_topk.launches = 0
 
 # the C interface of csrc/impact_bm25_scores.cu: term_ids, sat, qpack, need,
-# dist (or NULL); w_s, w_d; out; n_pad, L, b, m; stream
+# dist (or NULL); w_s, w_d; out; n_pad, L, b, m; the plan's queries, terms,
+# subs and qsplit; stream
 _LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 \
-    + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # impact_bm25_topk_launch: the same operands; w_s, w_d; part, vals, ids;
 # n_pad, L, b, m, k; stream
 _TOPK_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 \
@@ -275,9 +417,12 @@ def _launcher() -> ctypes.CDLL:
     lib.impact_bm25_topk_workspace.restype = ctypes.c_longlong
     lib.impact_bm25_topk_max_k.argtypes = []
     lib.impact_bm25_topk_max_k.restype = ctypes.c_int
+    lib.impact_bm25_scores_unit_entries.argtypes = []
+    lib.impact_bm25_scores_unit_entries.restype = ctypes.c_int
     lib.impact_bm25_scores_error_string.argtypes = [ctypes.c_int]
     lib.impact_bm25_scores_error_string.restype = ctypes.c_char_p
-    if lib.impact_bm25_topk_max_k() != MAX_K:
+    if lib.impact_bm25_topk_max_k() != MAX_K \
+            or lib.impact_bm25_scores_unit_entries() != UNIT_ENTRIES:
         raise RuntimeError("csrc/impact_bm25_scores.cu and ops/impact_bm25.py "
-                           "disagree on MAX_K")
+                           "disagree on MAX_K or UNIT_ENTRIES")
     return lib
