@@ -1,9 +1,10 @@
 """Drive the port's serving paths once on one CUDA card: exact and
-approximate KNN, BM25 text and hybrid text+vector serving, the HNSW
-index (graph build at insert, beam search from SQL), the device
-scan-aggregate route (GROUP BY over card-resident columns), and the
+approximate KNN, SQ-u8 scoring, BM25 text and hybrid text+vector serving,
+the HNSW index (graph build at insert, beam search from SQL), the device
+scan-aggregate route (GROUP BY over card-resident columns), the
 join-aggregate route with the finalize fusion (TPC-H joins, HAVING and
-top-n on the card).
+top-n on the card), distributed SQL over a mesh of shards and the
+multi-shard exact top-k.
 
     python3 chip_smoke.py [--profile] [--diagnose]
 
@@ -71,6 +72,13 @@ Phases (any failure exits non-zero and prints no result line):
      (B=1024, exact and approximate; B=256 approximate runs the exact
      program and launches no kernel) and a cosine batch; recall@10 against
      a numpy ground truth on 16 queries, launch counts of every kernel;
+     then [sq8] on the same corpus: ``ops.quantization.encode`` (quantile
+     0.99), ``approx_dot`` on [16, N] against the formula over integer
+     products in numpy (within 4 f32 ulp of its terms), ``topk_l2`` at
+     B = 256, k = 10, shortlist 4 without and with the f32 re-rank (whole
+     call, device busy, recall@10; >= 0.95 re-ranked), the int8 product's
+     exact f32 route beside ``torch._int_mm`` on the same codes (equal;
+     a library yardstick, not on the path);
   5. with --profile, after the launch counts are read: torch.profiler over
      3 batches of each execute_batch_block mode (whole call, _topk, device
      busy, the biggest device items), and in the [match] phase over 3
@@ -142,10 +150,33 @@ Phases (any failure exits non-zero and prints no result line):
      against its pandas ``expected``, no route error; the routes that
      engaged (J1 enrichment, J2 pushdown, the fusion), the engines, any
      decline's reason, grouped_sums launches (added to [agg]'s in the
-     kernels line);
-  10. [suites]: ``python -m databend_tpu_torch sqllogic tests/suites/index``
+     kernels line). Then [dist] in the same session under an installed
+     mesh of 4 shards (one a card where there are 4 cards, else 4 logical
+     shards of cuda:0) with the device-local routes off: a GROUP BY
+     (psum merge), HAVING + ORDER BY ... LIMIT by supplier and by part
+     (the fused fragment, psum and shuffle), an ORDER BY ... LIMIT 100
+     over lineitem (ordered merge), a full ORDER BY over orders
+     (range-partition sort), a lineitem-orders join aggregate (broadcast
+     join), a row_number() window over orders (key shuffle), each with
+     ``enable_distributed_execution`` off then on, twice: the exchange
+     called, rows alike (integer-valued columns equal, float sums within
+     rel 1e-5), warm times; then a literal l2 KNN statement over 262,144 x
+     96 rows with ``enable_distributed_pruning`` off then on: the
+     mesh-sharded prune runs, ids equal and equal to numpy;
+  10. [mesh]: BASELINE configuration 5 at Deep10M's shape
+     (benchmarks/mesh_knn_bench.py): 10,000,000 x 96 standard normal f32
+     rows (seed 5) row-sharded over 4 shards (placed as in [dist]), B = 8,
+     k = 10, l2: upload s, first and warm batch ms in f32 and bf16, device
+     busy of each shard's scan; f32 ids equal to the single-device
+     ``chunked_topk_smallest`` and to an f64 numpy truth (recall 1.0),
+     distances within 1e-3 x the largest; bf16 recall >= 0.95. Then
+     ``sharded_search_step`` on a (2, 2) mesh over 1,048,576 of the rows
+     (x 4, rounded: every distance and cluster sum exact) with 64
+     centroids: counts equal numpy's and sum to n, centroids within rel
+     1e-4 of a numpy Lloyd step, recall@10 1.0;
+  11. [suites]: ``python -m databend_tpu_torch sqllogic tests/suites/index``
      on the card exits 0;
-  11. stand-alone: every loaded port module (the device BM25, HNSW and
+  12. stand-alone: every loaded port module (the device BM25, HNSW and
      scan-aggregate modules among them) comes from the port's own directory,
      and no jax or databend_tpu module was loaded.
 The last line is {"ok": true, "device": {...}}.
@@ -194,6 +225,16 @@ TPCH_QUERIES = ("q2", "q3", "q10", "q11", "q13", "q15", "q16", "q18")
 TPCH_REPS = 3          # warm routed calls per [tpch] statement
 TIES_ROWS = 262_144    # [ties]: one block of integer rows in [0, 3]
 TIES_SEED = 29
+SQ8_B = 256            # [sq8]: topk_l2 batch on the main path's corpus
+MESH_ROWS = 10_000_000  # [mesh]: BASELINE configuration 5 at Deep10M's shape
+MESH_DIM = 96
+MESH_SEED = 5
+MESH_SHARDS = 4
+MESH_B = 8
+STEP_ROWS = 1 << 20    # [mesh]: sharded_search_step's corpus
+STEP_CENTROIDS = 64
+DIST_VEC_ROWS = 262_144  # [dist]: the vector table of the distributed prune
+DIST_RTOL = 1e-5       # [dist]: f32 sums of the exchanges against the host's
 MATCH_WORDS = ["weather", "news", "google", "maps", "cat", "videos", "python",
                "flights", "hotels", "music", "games", "sports", "stock",
                "market", "recipe", "travel"]
@@ -928,7 +969,7 @@ def phase_main_path(card, profile):
             launches = ft.flash_group_minima.launches
             if profile:
                 profile_modes(ctx, queries, card)
-            return launches
+            return launches, x, queries, gt
         finally:
             ctx.close()
 
@@ -1601,6 +1642,450 @@ def phase_cluster(card):
     check(r >= 0.99, f"clustered KNN recall {r}")
 
 
+# --------------------------------------------------------- [sq8], [mesh]
+
+
+def device_busy(call, reps=3):
+    """(whole-call ms on the host clock, device-busy ms: the summed time of
+    the profiler's device-side events) per call of ``call()``, after a
+    warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        whole = (time.perf_counter() - t0) / reps * 1e3
+    busy = sum(_device_us(e) for e in _kernels(prof.key_averages())) \
+        / reps / 1e3
+    check(busy > 0, "the profiler saw no device time")
+    return whole, busy
+
+
+def phase_sq8(card, x, queries, gt):
+    """SQ-u8 scoring (``ops/quantization.py``) on the main path's corpus:
+    ``encode`` at quantile 0.99, ``approx_dot`` on a [16, N] slice against
+    the same formula over integer products in numpy, then ``topk_l2`` at
+    B = SQ8_B, k = 10, shortlist 4, with and without the f32 re-rank
+    (recall@10 on the N_GT queries with a ground truth, whole call and
+    device busy), and the int8 product's exact f32 route beside
+    ``torch._int_mm`` on the same codes (a library yardstick, not on the
+    path)."""
+    from databend_tpu_torch import backend
+    from databend_tpu_torch.ops import quantization as sq
+
+    d_l2, kth = gt["l2"]
+    t0 = time.perf_counter()
+    corpus = sq.encode(x, 0.99)
+    torch.cuda.synchronize()
+    m = corpus.meta
+    print(f"[sq8] encode {x.shape[0]} x {x.shape[1]} at quantile 0.99: "
+          f"{time.perf_counter() - t0:.1f} s (host fit + upload), alpha "
+          f"{m.alpha:.6f}, offset {m.offset} [{card}]")
+    check(corpus.codes.is_cuda and corpus.codes.dtype == torch.int8,
+          "the SQ-u8 codes are not int8 on the card")
+
+    # approx_dot: integer products summed exactly in f64 (every partial sum
+    # an integer below 2^53), the three terms in f64; the port's f32 terms
+    # may each round once, and so may their two sums
+    qc, qs = sq.encode_query(queries[:N_GT], m)
+    got = backend.to_numpy(sq.approx_dot(qc, qs, corpus)).astype(np.float64)
+    idot = backend.to_numpy(qc).astype(np.float64) \
+        @ backend.to_numpy(corpus.codes).astype(np.float64).T
+    beta = m.alpha * 128.0 + m.offset
+    terms = (m.alpha * m.alpha * idot,
+             m.alpha * beta * (backend.to_numpy(qs)[:, None].astype(np.float64)
+                               + backend.to_numpy(corpus.sums)[None, :]),
+             np.full(idot.shape, m.dim * beta * beta))
+    want = terms[0] + terms[1] + terms[2]
+    tol = 4 * 2.0 ** -24 * sum(np.abs(t) for t in terms)
+    err = float(np.abs(got - want).max())
+    print(f"[sq8] approx_dot [{N_GT}, {x.shape[0]}] against numpy: max |err| "
+          f"{err} (bound 4 ulp of the terms, at most {float(tol.max())}) "
+          f"[{card}]")
+    check(bool((np.abs(got - want) <= tol).all()),
+          f"approx_dot off the numpy formula by {err}")
+
+    x_dev = backend.to_device(x)
+    q = queries[:SQ8_B]
+    need = {False: 0.0, True: 0.95}
+    for rerank in (False, True):
+        def call(rerank=rerank):
+            return sq.topk_l2(q, corpus, K, x_f32=x_dev if rerank else None)
+        vals, ids = call()
+        vals, ids = backend.to_numpy(vals), backend.to_numpy(ids)
+        check(ids.shape == (SQ8_B, K) and np.isfinite(vals).all(),
+              f"[sq8] rerank={rerank}: shape {ids.shape} or non-finite values")
+        r = recall(ids[:N_GT].astype(np.int64), d_l2, kth)
+        whole, busy = device_busy(call)
+        print(f"[sq8] topk_l2 B={SQ8_B} k={K} shortlist 4 rerank={rerank}: "
+              f"whole call {whole:.3f} ms, device busy {busy:.3f} ms, "
+              f"recall@10 {r} on {N_GT} queries [{card}]")
+        check(r >= need[rerank], f"[sq8] rerank={rerank}: recall {r}")
+    del x_dev
+
+    # the int8 product: the exact f32 route against the library's int8
+    # product on the same codes (one read of the codes and one write of the
+    # [B, N] int32 result at the memory rate is its bound)
+    qc, _ = sq.encode_query(q, m)
+    ours = sq.int8_dot(qc, corpus.codes)
+    lib = torch._int_mm(qc, corpus.codes.T)
+    check(torch.equal(ours, lib), "[sq8] int8_dot differs from torch._int_mm")
+    del ours, lib
+    f32_ms = cuda_ms(lambda: sq.int8_dot(qc, corpus.codes))
+    lib_ms = cuda_ms(lambda: torch._int_mm(qc, corpus.codes.T))
+    n = corpus.codes.shape[0]
+    bound = (corpus.codes.numel() + qc.numel() + 4 * SQ8_B * n) \
+        / HBM_BYTES_PER_S * 1e3
+    print(f"[sq8] int8 product [{SQ8_B}, {m.dim}] x [{n}, {m.dim}]: exact f32 "
+          f"route {f32_ms:.3f} ms, torch._int_mm {lib_ms:.3f} ms (equal), "
+          f"bound {bound:.3f} ms (bytes) [{card}]")
+
+
+def mesh_devices(n):
+    """n devices for an n-shard mesh: one card each where there are n
+    cards, else n logical shards of cuda:0."""
+    if torch.cuda.device_count() >= n:
+        return ([torch.device("cuda", i) for i in range(n)],
+                f"one shard a card on {n} cards")
+    return [torch.device("cuda", 0)] * n, f"{n} logical shards of cuda:0"
+
+
+def mesh_truth(x, q):
+    """Squared l2 distances [B, N] in f64, 1M rows at a time, and the
+    top-k ids by (distance, id)."""
+    q64 = q.astype(np.float64)
+    d = np.empty((q.shape[0], x.shape[0]))
+    for s in range(0, x.shape[0], 1 << 20):
+        xs = x[s:s + (1 << 20)].astype(np.float64)
+        d[:, s:s + xs.shape[0]] = (xs * xs).sum(1)[None, :] \
+            - 2.0 * (q64 @ xs.T) + (q64 * q64).sum(1)[:, None]
+    top = np.argpartition(d, K, axis=1)[:, :K]
+    order = np.lexsort((top, np.take_along_axis(d, top, 1)), axis=1)
+    return d, np.take_along_axis(top, order, 1)
+
+
+def phase_mesh(card):
+    """BASELINE configuration 5 at Deep10M's shape
+    (benchmarks/mesh_knn_bench.py): MESH_ROWS x MESH_DIM standard normal
+    rows (seed MESH_SEED) row-sharded over a MESH_SHARDS-shard mesh, the
+    exact sharded top-k (B = MESH_B, k = 10, l2) in f32 and bf16; then
+    ``sharded_search_step`` on a (2, 2) mesh."""
+    from databend_tpu_torch import backend, parallel
+    from databend_tpu_torch.ops.topk import chunked_topk_smallest
+    from databend_tpu_torch.parallel import distributed
+    from databend_tpu_torch.parallel import mesh as pm
+
+    rng = np.random.default_rng(MESH_SEED)
+    t0 = time.perf_counter()
+    x = np.empty((MESH_ROWS, MESH_DIM), np.float32)
+    for s in range(0, MESH_ROWS, 1 << 20):
+        e = min(MESH_ROWS, s + (1 << 20))
+        x[s:e] = rng.standard_normal((e - s, MESH_DIM), dtype=np.float32)
+    q = rng.standard_normal((MESH_B, MESH_DIM), dtype=np.float32)
+    d, truth = mesh_truth(x, q)
+    print(f"[mesh] {MESH_ROWS} x {MESH_DIM} rows + f64 truth in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+
+    devs, how = mesh_devices(MESH_SHARDS)
+    m = pm.make_mesh(MESH_SHARDS, devices=devs)
+    t0 = time.perf_counter()
+    x_dev, n_valid = parallel.shard_rows(x, m)
+    for dev in set(devs):
+        torch.cuda.synchronize(dev)
+    upload_s = time.perf_counter() - t0
+    q_dev = pm.device_put(q, parallel.query_sharding(m))
+
+    def run(bf16):
+        dv, iv = parallel.sharded_brute_force_topk(
+            m, q_dev, x_dev, K, "l2", bf16=bf16, n_valid=n_valid)
+        return np.asarray(dv), np.asarray(iv)
+
+    def timed(bf16):
+        t0 = time.perf_counter()
+        dv, iv = run(bf16)
+        first = (time.perf_counter() - t0) * 1e3
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(bf16)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        return dv, iv, first, float(np.median(warm))
+
+    dv, iv, first, warm = timed(False)
+    x_one = torch.cat([b.to(devs[0]) for b in x_dev.shards()])
+    sv, si = chunked_topk_smallest(backend.to_device(q, device=devs[0]),
+                                   x_one, K, "l2")
+    del x_one
+    si = backend.to_numpy(si)
+    true = np.sqrt(np.maximum(np.take_along_axis(d, truth, 1), 0.0))
+    r = recall(iv.astype(np.int64), d, np.take_along_axis(d, truth, 1)
+               .max(1))
+    err = float(np.abs(dv - true).max())
+    print(f"[mesh] {how}: upload {upload_s:.2f} s ({x.nbytes / 2 ** 30:.2f} "
+          f"GiB), f32 B={MESH_B} k={K}: first batch {first:.1f} ms, warm "
+          f"{warm:.1f} ms (median of 3), recall@10 {r}, ids equal to the "
+          f"single-device chunked_topk_smallest: {np.array_equal(iv, si)}, "
+          f"to the f64 truth: {np.array_equal(iv, truth)}, max |d - f64| "
+          f"{err} [{card}]")
+    check(np.array_equal(iv, si), "[mesh] f32 ids differ from the "
+                                  "single-device scan")
+    check(r == 1.0, f"[mesh] f32 recall {r}")
+    check(err <= 1e-3 * float(true.max()), f"[mesh] distances off by {err}")
+
+    bv, bi, first, warm = timed(True)
+    rb = recall(bi.astype(np.int64), d, np.take_along_axis(d, truth, 1)
+                .max(1))
+    print(f"[mesh] bf16 B={MESH_B} k={K}: first batch {first:.1f} ms, warm "
+          f"{warm:.1f} ms (median of 3), recall@10 {rb} [{card}]")
+    check(rb >= 0.95, f"[mesh] bf16 recall {rb}")
+    rows = MESH_ROWS // MESH_SHARDS
+    busy = []
+    for j, blk in enumerate(x_dev.shards()):
+        busy.append(device_busy(lambda j=j, blk=blk: distributed.local_topk(
+            q_dev.block(0, j), blk, K, "l2", rows, j, 131072, False,
+            n_valid))[1])
+    whole, all_busy = device_busy(lambda: run(False))
+    print(f"[mesh] device busy per shard, f32 local scan of {rows} rows: "
+          f"{[round(b, 3) for b in busy]} ms; a whole f32 batch: "
+          f"{whole:.3f} ms, device busy {all_busy:.3f} ms, idle share "
+          f"{100 * (1 - all_busy / whole):.0f}% [{card}]")
+    del x_dev
+
+    # the flagship step: dp = 2 over the query batch, 2 corpus shards. Rows
+    # rounded to integers (x * 4): every distance and every cluster sum is
+    # exact in f32 and in bf16, so the Lloyd step has one right answer
+    xs = np.rint(x[:STEP_ROWS] * 4.0)
+    del x, d
+    cent = xs[:STEP_CENTROIDS].copy()
+    qs = xs[rng.integers(0, STEP_ROWS, MESH_B)] + 1.0
+    devs, how = mesh_devices(4)
+    m2 = pm.make_mesh(4, dp=2, devices=devs)
+    xs_dev, _ = parallel.shard_rows(xs, m2)
+    qs_dev = pm.device_put(qs, parallel.query_sharding(m2))
+    c_dev = pm.device_put(cent, parallel.replicated(m2))
+
+    def step():
+        return parallel.sharded_search_step(m2, qs_dev, xs_dev, c_dev, K)
+
+    _, ids, new, counts = step()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        out = step()
+    np.asarray(out[3])
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    ids, new, counts = np.asarray(ids), np.asarray(new), np.asarray(counts)
+    dd = (xs * xs).sum(1)[:, None] - 2.0 * (xs @ cent.T) \
+        + (cent * cent).sum(1)[None, :]
+    assign = np.argmin(dd, axis=1)
+    cnt = np.bincount(assign, minlength=STEP_CENTROIDS)
+    sums = np.zeros_like(cent)
+    order = np.argsort(assign, kind="stable")
+    starts = np.searchsorted(assign[order], np.arange(STEP_CENTROIDS))
+    live = cnt > 0
+    sums[live] = np.add.reduceat(xs[order], starts[live], axis=0)
+    ref = np.where(cnt[:, None] > 0, sums / np.maximum(cnt[:, None], 1), cent)
+    cerr = float(np.abs(new - ref).max())
+    ds, ts = mesh_truth(xs, qs)
+    rs = recall(ids.astype(np.int64), ds, np.take_along_axis(ds, ts, 1)
+                .max(1))
+    print(f"[mesh] sharded_search_step on a (2, 2) mesh ({how}), "
+          f"{STEP_ROWS} rows, {STEP_CENTROIDS} centroids, bf16 top-k: "
+          f"{step_ms:.1f} ms a step (mean of 3), counts sum "
+          f"{int(counts.sum())}, equal to numpy: "
+          f"{np.array_equal(counts, cnt)}, max |centroid - numpy Lloyd| "
+          f"{cerr}, recall@10 {rs} [{card}]")
+    check(int(counts.sum()) == STEP_ROWS, "[mesh] counts do not sum to n")
+    check(np.array_equal(counts, cnt), "[mesh] counts differ from numpy")
+    check(cerr <= 1e-4 * float(np.abs(ref).max()),
+          f"[mesh] centroids off the numpy Lloyd step by {cerr}")
+    check(rs == 1.0, f"[mesh] search-step recall {rs}")
+
+
+# ------------------------------------------------------------------ [dist]
+
+
+DIST_STATEMENTS = [
+    ("group_by", "psum merge", ["sharded_grouped_agg"],
+     "SELECT l_suppkey, count(*), sum(l_quantity), min(l_quantity), "
+     "max(l_quantity), sum(l_extendedprice) FROM lineitem "
+     "GROUP BY l_suppkey ORDER BY l_suppkey"),
+    ("agg_topn_psum", "AggTopNFragment, psum", ["sharded_grouped_agg_topn"],
+     "SELECT l_suppkey, sum(l_extendedprice) AS revenue, count(*) AS c "
+     "FROM lineitem GROUP BY l_suppkey HAVING count(*) > 550 "
+     "ORDER BY revenue DESC LIMIT 10"),
+    ("agg_topn_shuffle", "AggTopNFragment, shuffle",
+     ["sharded_grouped_agg_topn"],
+     "SELECT l_partkey, sum(l_extendedprice) AS revenue FROM lineitem "
+     "GROUP BY l_partkey HAVING count(*) > 30 ORDER BY revenue DESC "
+     "LIMIT 10"),
+    ("order_by_limit", "ordered merge", ["sharded_topn"],
+     "SELECT l_orderkey, l_partkey, l_extendedprice FROM lineitem "
+     "ORDER BY l_extendedprice DESC, l_orderkey LIMIT 100"),
+    ("order_by_full", "range-partition sort", ["range_partition_sort"],
+     "SELECT o_orderkey, o_totalprice FROM orders "
+     "ORDER BY o_totalprice, o_orderkey"),
+    ("join", "broadcast join", ["broadcast_lookup_join"],
+     "SELECT o_orderpriority, count(*), sum(l_quantity) FROM lineitem "
+     "JOIN orders ON l_orderkey = o_orderkey GROUP BY o_orderpriority "
+     "ORDER BY o_orderpriority"),
+    ("window", "key shuffle", ["shuffle_by_key"],
+     "SELECT o_orderkey, row_number() OVER (PARTITION BY o_custkey "
+     "ORDER BY o_orderdate, o_orderkey) AS rn FROM orders "
+     "ORDER BY o_orderkey LIMIT 1000"),
+]
+
+
+def dist_same(want, got):
+    """Rows of two QueryResults alike: integer and string columns equal; a
+    float column whose host values are all integers below 2^24 (counts,
+    integer sums, min / max of an integer column) equal; other float
+    columns within rel DIST_RTOL, the exchanges' f32 contract."""
+    wc, gc = list(want.block.items()), list(got.block.items())
+    if [n for n, _ in wc] != [n for n, _ in gc] \
+            or want.block.num_rows != got.block.num_rows:
+        return False
+    for (_, a), (_, b) in zip(wc, gc):
+        if (a.validity is None) != (b.validity is None) or (
+                a.validity is not None
+                and not np.array_equal(a.validity, b.validity)):
+            return False
+        if not isinstance(a.data, np.ndarray):
+            if a.to_pylist() != b.to_pylist():
+                return False
+            continue
+        keep = slice(None) if a.validity is None else a.validity
+        x, y = a.data[keep], np.asarray(b.data)[keep]
+        if x.dtype.kind != "f" and y.dtype.kind != "f":
+            if not np.array_equal(x, y):
+                return False
+            continue
+        x, y = x.astype(np.float64), y.astype(np.float64)
+        if np.all((np.abs(x) < 2 ** 24) & (x == np.rint(x))):
+            if not np.array_equal(x, y):
+                return False
+        elif not np.all(np.abs(x - y) <= DIST_RTOL * np.abs(x)):
+            return False
+    return True
+
+
+def phase_dist(card, ctx, profile):
+    """Distributed SQL on the card in the [tpch] session (TPC-H SF1, seed
+    42) under an installed mesh of 4 shards: each of DIST_STATEMENTS with
+    ``enable_distributed_execution`` off, then on (the device-local routes
+    off, so that the host operator and the exchange answer), twice each;
+    rows alike (``dist_same``), the exchange it is meant for called, the
+    warm call of each timed. Then a literal KNN statement over a
+    DIST_VEC_ROWS-row table (above ``vector_host_scan_max_rows``) with
+    ``enable_distributed_pruning`` off, then on: the mesh-sharded prune
+    runs, ids equal. With --profile, each statement's warm call with the
+    setting on under torch.profiler."""
+    from databend_tpu_torch import parallel
+    from databend_tpu_torch.expression import Column, DataBlock
+    from databend_tpu_torch.parallel import exchange, fragmenter
+    from databend_tpu_torch.parallel import mesh as pm
+    from databend_tpu_torch.types import VectorType
+
+    devs, how = mesh_devices(4)
+    calls = {}
+    real = {}
+    spied = [(exchange, n) for n in (
+        "sharded_grouped_agg", "sharded_shuffle_grouped_agg", "sharded_topn",
+        "range_partition_sort", "broadcast_lookup_join", "ShuffleJoin",
+        "shuffle_by_key")] + [(fragmenter, "sharded_grouped_agg_topn"),
+                              (parallel, "sharded_brute_force_topk")]
+
+    def counted(name, fn):
+        def spy(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return spy
+
+    for mod, name in spied:
+        real[(mod, name)] = getattr(mod, name)
+        setattr(mod, name, counted(name, real[(mod, name)]))
+    old = pm.set_default_mesh(pm.make_mesh(4, devices=devs))
+    print(f"[dist] mesh: {how}; the device-local routes off for the "
+          "comparison")
+    ctx.sql("SET enable_device_local_execution = 0")
+    try:
+        for name, what, names, sql in DIST_STATEMENTS:
+            times = {}
+            for on in (0, 1):
+                ctx.sql(f"SET enable_distributed_execution = {on}")
+                calls.clear()
+                ctx.sql(sql)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = ctx.sql(sql)
+                torch.cuda.synchronize()
+                times[on] = (time.perf_counter() - t0) * 1e3
+                if on:
+                    got, took = res, dict(calls)
+                else:
+                    want = res
+            ctx.sql("SET enable_distributed_execution = 0")
+            ok = dist_same(want, got)
+            print(f"[dist] {name} ({what}, {want.block.num_rows} rows): "
+                  f"warm off {times[0]:.1f} ms, on {times[1]:.1f} ms; calls "
+                  f"{took}; rows alike: {ok} [{card}]")
+            check(all(took.get(n, 0) >= 2 for n in names),
+                  f"[dist] {name}: {names} not called: {took}")
+            check(ok, f"[dist] {name}: rows differ from the host's: "
+                      f"{want.rows()[:3]} vs {got.rows()[:3]}")
+            if profile:
+                ctx.sql("SET enable_distributed_execution = 1")
+                profile_call(f"[dist] {name} warm call, setting on", card,
+                             lambda r, sql=sql: ctx.sql(sql))
+                ctx.sql("SET enable_distributed_execution = 0")
+
+        vrng = np.random.default_rng(MESH_SEED + 1)
+        xv = vrng.standard_normal((DIST_VEC_ROWS, MESH_DIM), dtype=np.float32)
+        ctx.sql(f"CREATE TABLE dv (id BIGINT, emb VECTOR({MESH_DIM})) "
+                "ROW_PER_BLOCK='65536'")
+        ctx.insert_block("dv", DataBlock(
+            ["id", "emb"],
+            [Column.from_numpy(np.arange(DIST_VEC_ROWS, dtype=np.int64)),
+             Column.from_numpy(xv, VectorType(MESH_DIM))]))
+        # created after the writes: no block has a graph, the exact scan runs
+        ctx.sql("CREATE VECTOR INDEX dvi ON dv(emb) ASYNC distance='l2'")
+        qv = xv[17] + 0.01
+        lit = "[" + ",".join(f"{v:.6f}" for v in qv) + "]"
+        sql = f"SELECT id FROM dv ORDER BY l2_distance(emb, {lit}) LIMIT 10"
+        times = {}
+        for on in (0, 1):
+            ctx.sql(f"SET enable_distributed_pruning = {on}")
+            calls.clear()
+            ctx.sql(sql)
+            t0 = time.perf_counter()
+            rows = ctx.sql(sql).rows()
+            torch.cuda.synchronize()
+            times[on] = (time.perf_counter() - t0) * 1e3
+            if on:
+                got, took = rows, dict(calls)
+            else:
+                want = rows
+        ctx.sql("SET enable_distributed_pruning = 1")
+        truth = np.argsort(((xv - qv) ** 2).sum(1), kind="stable")[:10]
+        print(f"[dist] vector_prune (mesh-sharded exact top-k, "
+              f"{DIST_VEC_ROWS} rows): warm off {times[0]:.1f} ms, on "
+              f"{times[1]:.1f} ms; calls {took}; ids equal: {got == want}, "
+              f"to numpy: {[r[0] for r in got] == truth.tolist()} [{card}]")
+        check(took.get("sharded_brute_force_topk", 0) == 2,
+              f"[dist] the distributed prune did not run: {took}")
+        check(got == want and [r[0] for r in got] == truth.tolist(),
+              f"[dist] vector_prune ids {got} vs {want}")
+    finally:
+        pm.set_default_mesh(old)
+        ctx.sql("SET enable_device_local_execution = 1")
+        ctx.sql("SET enable_distributed_execution = 0")
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
 # ------------------------------------------------------------------- [agg]
 
 
@@ -2044,6 +2529,7 @@ def phase_agg(card, profile):
                                  lambda r, sql=sql: ctx.sql(sql).rows())
             tpch_launches = phase_tpch(card, profile, ctx, data, engines,
                                        state)
+            phase_dist(card, ctx, profile)
             return launches, captured, tpch_launches
         finally:
             dsa._build_program = real_program
@@ -2253,6 +2739,10 @@ def check_standalone():
     check("databend_tpu_torch.pipeline.device_scan_agg" in mods
           and "databend_tpu_torch.ops.grouped_sums" in mods,
           "the scan-aggregate modules were not loaded")
+    check(all(f"databend_tpu_torch.{m}" in mods for m in (
+        "parallel.mesh", "parallel.distributed", "parallel.exchange",
+        "parallel.fragmenter", "ops.quantization")),
+          "the mesh, exchange or SQ-u8 modules were not loaded")
     check("databend_tpu_torch._reference" not in mods,
           "databend_tpu_torch._reference is loaded")
     check(not leaked, f"reference modules loaded: {leaked}")
@@ -2383,8 +2873,10 @@ def main():
         diagnose_grouped_sums(card)
     profile = "--profile" in sys.argv[1:]
     phase_ties(card)
-    launches = phase_main_path(card, profile)
+    launches, x, queries, gt = phase_main_path(card, profile)
     check(launches > 0, "the main path launched flash_group_minima no time")
+    phase_sq8(card, x, queries, gt)
+    del x, queries, gt
     topk_launches, imp_launches = phase_match(card, profile)
     check(topk_launches > 0, "the [match] path launched impact_bm25_topk "
                              "no time")
@@ -2397,6 +2889,7 @@ def main():
     gs_launches += tpch_launches
     gsk.update(hold_grouped_sums_agg(card, captured))
     del captured
+    phase_mesh(card)
     phase_suites(card)
     check_standalone()
 

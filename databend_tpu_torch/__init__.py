@@ -8,9 +8,9 @@ CUDA kernels under ``csrc/``. Device choice lives in
 ``databend_tpu`` package and reads none of its files;
 ``tests/test_torch_standalone.py`` checks that every copied host module is
 still byte-identical to its reference, apart from a named list of modules
-the port owns. What is not ported yet (device BM25, SQ-u8 quantization,
-the mesh in ``parallel``, the HNSW graph build and search) fails with
-ImportError or NotImplementedError or declines to the host; see ROADMAP.md.
+the port owns. The one reference module not ported yet,
+``parallel/multihost.py`` (meshes that join several processes), has no
+file here; see ROADMAP.md.
 """
 
 from .version import __version__

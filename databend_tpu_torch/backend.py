@@ -34,6 +34,9 @@ def device() -> torch.device:
     return torch.device("cuda")
 
 
+_device = device     # the module function, under a parameter of that name
+
+
 def devices() -> list:
     """Every device the port runs on: all cards under cuda, else the one
     device asked for by name."""
@@ -44,11 +47,14 @@ def devices() -> list:
     return [dev]
 
 
-def to_device(array, dtype: torch.dtype = None) -> torch.Tensor:
-    """numpy (or array-like) -> tensor on :func:`device`."""
+def to_device(array, dtype: torch.dtype = None,
+              device: torch.device = None) -> torch.Tensor:
+    """numpy (or array-like) -> tensor on ``device`` (a mesh position's
+    device), by default :func:`device`."""
     # torch wants a writable buffer: copy only read-only or strided input
     t = torch.from_numpy(np.require(array, requirements=["C", "W"]))
-    return t.to(device=device(), dtype=dtype)
+    return t.to(device=device if device is not None else _device(),
+                dtype=dtype)
 
 
 def to_numpy(tensors):

@@ -1,7 +1,3 @@
-"""Device kernels of the port (PyTorch, plus hand-written CUDA under
-``csrc/``). A reference ``ops`` module the port has not ported yet
-(``quantization``) has no file here and fails to import."""
-
 from .distance import (
     pairwise_distance,
     cosine_distance,

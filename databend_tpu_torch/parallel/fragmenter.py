@@ -1,29 +1,290 @@
-"""Plan fragmenter of the port: the host halves.
+"""Plan fragmenter: multi-exchange plan regions run as ONE device fragment,
+with device-resident intermediates between the exchanges (port of
+``databend_tpu/parallel/fragmenter.py``).
 
-The reference compiles ``Sort(limit) -> [Project] -> [HAVING] ->
-Aggregate`` into one device program over the mesh. What runs before any
-mesh check is host code and is copied here: the plan matching
-(``match_agg_topn``, ``_spec_key``, ``_compile_having``) and the aggregate
-layout the standalone distributed aggregate shares (``device_agg_plan``,
-``device_agg_values``, ``finalize_device_agg``). The device halves (the
-psum and shuffle programs, ``sharded_grouped_agg_topn``) wait for the mesh
-(ROADMAP.md item 11b): ``AggTopNFragment.execute`` returns None without a
-mesh, as the reference does, and the executor's host path answers.
+The reference fragments the physical plan at exchange points and streams
+Arrow Flight data between the resulting fragments (reference:
+schedulers/fragments/fragmenter.rs:59,209-266;
+servers/flight/v1/exchange/exchange_manager.rs:168) — operators inside a
+fragment hand blocks to each other without touching the network. Here an
+entire multi-exchange region
+
+    shuffle/merge grouped aggregation  ->  HAVING  ->  ordered-merge top-n
+
+runs over the mesh (``mesh.py``) with the dense grouped state on the
+devices: host<->device traffic is the input rows in and the ``limit``
+winners out.
+
+Two fused variants, routed by group count exactly like the standalone
+operators in ``exchange.py``:
+
+* **psum fragment** — per-shard segment partials, ``psum`` merge
+  (reference Merge exchange), then HAVING mask + top-n selection on the
+  merged state. One collective.
+* **shuffle fragment** — rows ``all_to_all``-shuffled so each group
+  lands wholly on its owner shard (reference FragmentKind::Normal hash
+  shuffle), per-shard segment reduce over the owner-local group range,
+  HAVING mask + per-shard top-n, then an ``all_gather`` of the s*L
+  candidates and the final select — the ordered merge exchange
+  (exchange_sorting.rs) fused onto the back of the shuffle aggregation.
+  The [groups_per_shard, m] intermediate stays on its shard between the
+  two exchanges; only s*L candidate rows ride the second collective.
+
+Group counts are padded to powers of two and the live count compared on
+the device, as in the reference. Selections take the reference's order:
+``lax.top_k`` keeps equal values by ascending position, and its two-key
+``lax.sort`` is stable sorts from the last key to the first.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-# HAVING comparisons the device 3VL code knows (the reference's _CMP keys)
-_CMP = ("eq", "noteq", "lt", "lte", "gt", "gte")
+from .. import backend
+from .exchange import (_COLLECTIVE, _next_pow2, _segment, _skewed, _top_k,
+                       pad_rows, shard_rows_padded, shuffle_agg_local)
+from .mesh import SHARD_AXIS, all_gather, all_to_all
+
+# --------------------------------------------------------------------------
+# sort-key / HAVING expression evaluation over the merged [G, m] agg state
+#
+# ``key`` specs:
+#   ("col", j, nn)    raw op column j; NULL iff nn >= 0 and col nn == 0
+#                     (nn = hidden non-null-count column for nullable args)
+#   ("avg", js, jc)   sum col js / count col jc; NULL iff count == 0
+# HAVING predicate codes (3-valued logic, NULL comparisons never pass):
+#   ("const", v) | ("leaf", key_spec) | (cmp, a, b) | ("and"/"or", a, b)
+#   | ("not", a)
+
+
+def _key_value(key, merged):
+    """Returns (value [G], valid [G]) for a key spec over the merged
+    aggregate state."""
+    if key[0] == "avg":
+        s_, c_ = merged[:, key[1]], merged[:, key[2]]
+        return (torch.where(c_ > 0, s_ / torch.clamp_min(c_, 1.0), 0.0),
+                c_ > 0)
+    _, j, nn = key
+    v = merged[:, j]
+    if nn >= 0:
+        return v, merged[:, nn] > 0
+    return v, torch.ones(v.shape, dtype=torch.bool, device=v.device)
+
+
+_CMP = {
+    "eq": lambda a, b: a == b, "noteq": lambda a, b: a != b,
+    "lt": lambda a, b: a < b, "lte": lambda a, b: a <= b,
+    "gt": lambda a, b: a > b, "gte": lambda a, b: a >= b,
+}
+
+
+def _eval_pred(code, merged):
+    """3-valued HAVING evaluation: returns (val [G] bool, known [G] bool);
+    a group passes iff known & val."""
+    op = code[0]
+    if op == "leaf" or op == "const":
+        raise ValueError("value node in boolean position")
+    if op == "not":
+        v, k = _eval_pred(code[1], merged)
+        return ~v, k
+    if op in ("and", "or"):
+        av, ak = _eval_pred(code[1], merged)
+        bv, bk = _eval_pred(code[2], merged)
+        if op == "and":
+            known = (ak & bk) | (ak & ~av) | (bk & ~bv)
+            return (av | ~ak) & (bv | ~bk), known
+        known = (ak & bk) | (ak & av) | (bk & bv)
+        return (av & ak) | (bv & bk), known
+    # comparison over value nodes
+    av, ak = _eval_value(code[1], merged)
+    bv, bk = _eval_value(code[2], merged)
+    return _CMP[op](av, bv), ak & bk
+
+
+def _eval_value(code, merged):
+    if code[0] == "const":
+        g = merged.shape[0]
+        ones = torch.ones((g,), dtype=torch.bool, device=merged.device)
+        return torch.full((g,), float(code[1]), dtype=merged.dtype,
+                          device=merged.device), ones
+    assert code[0] == "leaf"
+    return _key_value(code[1], merged)
+
+
+def _segment_merge(gids, vals, ops, n_seg):
+    """Per-shard segment partials for the padded group range [0, n_seg);
+    gid < 0 marks padding rows (they fall in a spare segment, cut off)."""
+    g = torch.where(gids >= 0, gids, n_seg)
+    return torch.stack([_segment(op, vals[:, j], g, n_seg + 1)[:n_seg]
+                        for j, op in enumerate(ops)], dim=1)  # [n_seg, m]
+
+
+def _lex_order(keys):
+    """The order of ``lax.sort(keys + (iota,), num_keys=len(keys))``:
+    stable sorts from the last key to the first."""
+    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for key in reversed(keys):
+        perm = perm[torch.sort(key[perm], stable=True).indices]
+    return perm
+
+
+def _select_topn(merged, gid_of_row, alive, key, asc, nulls_first, limit,
+                 having: bool):
+    """HAVING mask + ordered top-n over an aggregate state slice. Returns
+    (gids [L], rows [L, m], alive [L], sel [L]) sorted in output order
+    (descending selection value)."""
+    kv, kvalid = _key_value(key, merged)
+    sel = -kv if asc else kv
+    null_sel = float("inf") if nulls_first else float("-inf")
+    sel = torch.where(kvalid, sel, null_sel)
+    sel = torch.where(alive, sel, float("-inf"))
+    if having:
+        # filtered rows may tie with real -inf keys: two-key sort
+        # (dead flag asc, sel desc) keeps every surviving group ahead
+        dead = (~alive).to(torch.int32)
+        top_pos = _lex_order([dead, -sel])[:limit]
+        top_sel = sel[top_pos]
+    else:
+        top_sel, top_pos = _top_k(sel, limit)
+    return (gid_of_row[top_pos], merged[top_pos], alive[top_pos], top_sel)
+
+
+# --------------------------------------------------------------- programs
+
+
+def _agg_topn_psum(g_parts, v_parts, g_pad: int, ops: Tuple[str, ...],
+                   key, limit: int, asc: bool, nulls_first: bool, hcode,
+                   g_count: int):
+    """Fused merge-exchange fragment: segment partials + psum + HAVING +
+    top-n; only the L winners leave the device."""
+    parts = [_segment_merge(g, v, ops, g_pad)
+             for g, v in zip(g_parts, v_parts)]
+    merged = torch.stack([_COLLECTIVE[op]([p[:, j] for p in parts])[0]
+                          for j, op in enumerate(ops)], dim=1)
+    gid_range = torch.arange(g_pad, dtype=torch.int32, device=merged.device)
+    alive = gid_range < g_count
+    if hcode is not None:
+        hv, hk = _eval_pred(hcode, merged)
+        alive = alive & hv & hk
+    return _select_topn(merged, gid_range, alive, key, asc, nulls_first,
+                        limit, hcode is not None)
+
+
+def _agg_topn_shuffle(g_parts, v_parts, capacity: int, gps: int,
+                      ops: Tuple[str, ...], key, limit: int, asc: bool,
+                      nulls_first: bool, hcode, g_count: int):
+    """Fused shuffle-exchange fragment: all_to_all row shuffle by
+    ``gid % s`` -> per-shard segment reduce over the owner-local range ->
+    HAVING + per-shard top-n -> all_gather of s*L candidates -> final
+    select. The [gps, m] grouped state stays on its shard between the
+    two exchanges."""
+    s = len(g_parts)
+    m = len(ops)
+    # ---- exchange 1: hash shuffle rows to their owner shard
+    sent = [shuffle_agg_local(g, v, s, capacity)
+            for g, v in zip(g_parts, v_parts)]
+    rgs = all_to_all([g for g, _ in sent])
+    rvs = all_to_all([v for _, v in sent])
+    cands = []
+    for my, (rg, rv) in enumerate(zip(rgs, rvs)):
+        rg = rg.reshape(-1)
+        # ---- owner-local segment reduce (device-resident intermediate)
+        g_local = torch.where(rg >= 0, torch.div(rg, s, rounding_mode="floor"),
+                              -1)
+        merged = _segment_merge(g_local, rv.reshape(-1, m), ops, gps)
+        # ---- HAVING + per-shard top-n on the sharded state
+        gid_global = torch.arange(gps, dtype=torch.int32,
+                                  device=merged.device) * s + my
+        alive = gid_global < g_count
+        if hcode is not None:
+            hv, hk = _eval_pred(hcode, merged)
+            alive = alive & hv & hk
+        cands.append(_select_topn(merged, gid_global, alive, key, asc,
+                                  nulls_first, min(limit, gps),
+                                  hcode is not None))
+    # ---- exchange 2: ordered merge of the s*L candidates
+    a_gid, a_rows, a_alive, a_sel = (
+        all_gather([c[t] for c in cands])[0] for t in range(4))
+    a_sel, a_gid, a_alive = (a.reshape(-1) for a in (a_sel, a_gid, a_alive))
+    a_rows = a_rows.reshape(-1, m)
+    k = min(limit, a_sel.shape[0])
+    if hcode is not None:
+        dead = (~a_alive).to(torch.int32)
+        pos = _lex_order([dead, -a_sel])[:k]
+    else:
+        _, pos = _top_k(a_sel, k)
+    return a_gid[pos], a_rows[pos], a_alive[pos], a_sel[pos]
+
+
+def sharded_grouped_agg_topn(mesh, gids: np.ndarray, values: np.ndarray,
+                             n_groups: int, ops: Sequence[str], key,
+                             limit: int, asc: bool, nulls_first: bool,
+                             hcode=None,
+                             shuffle_threshold: int = 65536
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Run the fused aggregate->HAVING->top-n fragment over the mesh.
+
+    Returns (top_gids [<=limit] int32, merged_rows [<=limit, len(ops)]
+    f32) in output order; rows that fail HAVING (or pad) are already
+    dropped. The variant (and the skew fallback to psum) is chosen on the
+    host before any upload.
+    """
+    s = mesh.shape[SHARD_AXIS]
+    gids32 = gids.astype(np.int32)
+    key = tuple(key)
+    hcode = _freeze(hcode)
+    use_shuffle = n_groups > shuffle_threshold
+    if use_shuffle:
+        padded = pad_rows(gids32, s, fill=-1)[0]
+        dest = np.where(padded >= 0, padded % s, -1).astype(np.int32)
+        skewed, capacity = _skewed(dest, s)
+        if skewed:
+            use_shuffle = False  # pathological skew: psum path instead
+    gids_dev, _ = shard_rows_padded(mesh, gids32, fill=-1)
+    vals_dev, _ = shard_rows_padded(
+        mesh, np.ascontiguousarray(values, np.float32))
+    g_parts, v_parts = gids_dev.shards(), vals_dev.shards()
+    if use_shuffle:
+        gps = _next_pow2((int(n_groups) + s - 1) // s)
+        out = _agg_topn_shuffle(g_parts, v_parts, capacity, gps, tuple(ops),
+                                key, int(limit), bool(asc), bool(nulls_first),
+                                hcode, int(n_groups))
+    else:
+        g_pad = _next_pow2(int(n_groups))
+        out = _agg_topn_psum(g_parts, v_parts, g_pad, tuple(ops), key,
+                             min(int(limit), g_pad), bool(asc),
+                             bool(nulls_first), hcode, int(n_groups))
+    t_gid, t_rows, t_alive, _ = out
+    t_gid, t_rows, t_alive = backend.to_numpy(
+        [t_gid, t_rows, t_alive.to(torch.int32)])
+    keep = t_alive.astype(bool) & (t_gid >= 0) & (t_gid < n_groups)
+    return t_gid[keep][:limit], t_rows[keep][:limit]
+
+
+def _freeze(code):
+    """Recursively tuple-ify a having/key code."""
+    if code is None:
+        return None
+    if isinstance(code, (list, tuple)):
+        return tuple(_freeze(c) for c in code)
+    return code
+
+
+# --------------------------------------------------------------------------
+# plan matching: Sort(limit) -> [Project(renames)] -> [Filter(HAVING)]
+#                -> Aggregate(keys)
+
+
+_JOIN_FUSE_INELIGIBLE = object()  # sentinel: fall through to generic path
 
 
 class AggTopNFragment:
-    """A matched fused fragment; ``execute()`` returns the final DataBlock
-    or None when the runtime bails (no mesh: always, in the port)."""
+    """A matched fused fragment; ``execute()`` returns the final
+    DataBlock (projected, sorted, limited) or None when the runtime
+    bails (no mesh / spill-scale input / stats fast path answered)."""
 
     def __init__(self, sort_plan, project, having, agg, ops, spec, key,
                  hcode):
@@ -36,14 +297,330 @@ class AggTopNFragment:
         self.key = key
         self.hcode = hcode
 
+    # -- host finish for the fallback paths (already-aggregated block)
+    def _host_finish(self, block):
+        from ..expression.evaluator import Evaluator
+        from ..pipeline import executor as ex
+        if self.having is not None:
+            mask_col = Evaluator(block).run(self.having.expr)
+            mask = mask_col.data.astype(bool)
+            if mask_col.validity is not None:
+                mask &= mask_col.validity
+            block = block.filter(mask)
+        if self.project is not None:
+            ev = Evaluator(block)
+            cols = [ev.run(e) for _, e in self.project.items]
+            block = type(block)([n for n, _ in self.project.items], cols,
+                                block.num_rows)
+        keys = ex._sort_key_arrays(block, self.sort_plan.items)
+        order = np.lexsort(keys)[: self.sort_plan.limit]
+        return block.take(order)
+
     def execute(self):
         from .mesh import get_default_mesh
+        from ..pipeline import executor as ex
+        from ..pipeline.keys import composite_group, factorize_column
+        from ..expression import Column, DataBlock
+        from ..expression.evaluator import Evaluator
 
-        if get_default_mesh() is None:
+        mesh = get_default_mesh()
+        if mesh is None:
             return None
-        raise NotImplementedError(
-            "the fused aggregate + top-n device program is not ported to "
-            "databend_tpu_torch (ROADMAP.md item 11b: mesh and exchanges)")
+        agg = self.agg
+        # cheap whole-answer paths first (stats / aggregating index)
+        fast = ex._try_stats_aggregate(agg)
+        if fast is None:
+            fast = ex._try_agg_index(agg)
+        if fast is not None:
+            return self._host_finish(fast)
+
+        # join fusion: when the aggregate input is an INNER equi-join,
+        # skip the join-output materialization entirely (see
+        # _join_fused_host). Only its host half declines on an error; the
+        # device half it returns propagates its errors.
+        try:
+            run = self._join_fused_host(mesh)
+        except Exception:
+            run = _JOIN_FUSE_INELIGIBLE
+        if run is not _JOIN_FUSE_INELIGIBLE:
+            return run() if run is not None else None
+
+        # buffer + factorize the aggregate input (the host prep every
+        # grouped path shares; strings need host factorization)
+        threshold = agg.spill_threshold_rows
+        runs = []
+        total = 0
+        for block in ex.execute_plan_blocks(agg.child):
+            ev = Evaluator(block)
+            key_cols = [ev.run(e) for _, e in agg.keys]
+            arg_cols = [[ev.run(e) for e in ae] if ae else None
+                        for _, _, ae in agg.aggs]
+            runs.append((key_cols, arg_cols, block.num_rows))
+            total += block.num_rows
+            if threshold and total > threshold:
+                return None  # spill scale: host grace-partition path
+        if not runs:
+            return None
+        nk = len(agg.keys)
+
+        def cat(parts):
+            return parts[0] if len(parts) == 1 else Column.concat(parts)
+
+        key_cols_all = [cat([r[0][i] for r in runs]) for i in range(nk)]
+        gids, rep_idx = composite_group(
+            [factorize_column(c) for c in key_cols_all])
+        final_n = len(rep_idx)
+        if final_n == 0:
+            return None
+        arg_cols_all = []
+        for ai in range(len(agg.aggs)):
+            parts = [r[1][ai] for r in runs]
+            arg_cols_all.append(
+                None if parts[0] is None else
+                [cat([p[t] for p in parts]) for t in range(len(parts[0]))])
+
+        vals = device_agg_values(agg.aggs, self.spec, self.ops,
+                                 arg_cols_all, len(gids))
+        it = self.sort_plan.items[0]
+        nulls_first = it.nulls_first if it.nulls_first is not None \
+            else False
+        top_gids, rows = sharded_grouped_agg_topn(
+            mesh, gids, vals, final_n, self.ops, self.key,
+            int(self.sort_plan.limit), it.asc, nulls_first, self.hcode)
+
+        sel_rows = rep_idx[top_gids]
+        out_cols = [c.take(sel_rows) for c in key_cols_all]
+        out_cols += finalize_device_agg(agg.aggs, self.spec, rows)
+        names = [n for n, _ in agg.keys] + [n for n, _, _ in agg.aggs]
+        block = DataBlock(names, out_cols, len(top_gids))
+        if self.project is not None:
+            ev = Evaluator(block)
+            cols = [ev.run(e) for _, e in self.project.items]
+            block = DataBlock([n for n, _ in self.project.items], cols,
+                              block.num_rows)
+        return block
+
+    def _join_fused_host(self, mesh):
+        """Fuse an INNER equi-join into the aggregate fragment: the join
+        output is NEVER materialized as a block. The probe side streams
+        through the build-once JoinMatcher; per matched pair only the
+        composite group id (probe-side gid x build-side gid) and the
+        agg-arg value matrix are built, and those feed the same fused
+        device program (psum or all_to_all shuffle variant). A hidden
+        "seen" count column masks (probe-group, build-group) combinations
+        that never co-occur, riding the HAVING machinery.
+
+        Reference: the fragmenter keeps the join and its downstream
+        aggregation in one fragment streaming block-to-block
+        (schedulers/fragments/fragmenter.rs:59); the fusion here is
+        stronger — one device fragment, no intermediate rows at all.
+
+        This is the host half: it returns the device half as a call
+        (which returns the DataBlock), None (eligible but the host must
+        finish, e.g. spill scale), or _JOIN_FUSE_INELIGIBLE.
+        """
+        from ..expression import Column, DataBlock
+        from ..expression.evaluator import Evaluator
+        from ..expression.expr import BoundColumn
+        from ..pipeline import executor as ex
+        from ..pipeline.keys import (JoinMatcher, composite_group,
+                                     factorize_column)
+        from ..sql.plans import JoinPlan
+
+        agg = self.agg
+        join = agg.child
+        if not isinstance(join, JoinPlan) or join.kind != "INNER" \
+                or join.residual is not None or not join.right_keys:
+            return _JOIN_FUSE_INELIGIBLE
+        nl = len(join.left.output_fields())
+        out_names = [f.name for f in join.fields]
+        if len(set(out_names)) != len(out_names):
+            return _JOIN_FUSE_INELIGIBLE
+        lnames, rnames = set(out_names[:nl]), set(out_names[nl:])
+
+        def side_of(e):
+            refs = {x.name for x in e.walk() if isinstance(x, BoundColumn)}
+            if refs <= lnames:
+                return "L"
+            if refs <= rnames:
+                return "R"
+            return None
+
+        key_sides = [side_of(e) for _, e in agg.keys]
+        if None in key_sides:
+            return _JOIN_FUSE_INELIGIBLE
+        agg_sides = []
+        for _, _, aes in agg.aggs:
+            if not aes:
+                agg_sides.append("L")  # count(*): one per pair
+                continue
+            ss = {side_of(e) for e in aes}
+            if len(ss) != 1 or None in ss:
+                return _JOIN_FUSE_INELIGIBLE
+            agg_sides.append(ss.pop())
+
+        # ---- build side: buffer fully (the broadcast-exchange side)
+        jthreshold = join.spill_threshold_rows
+        rblocks, rtotal = [], 0
+        for rb in ex.execute_plan_blocks(join.right):
+            rblocks.append(rb)
+            rtotal += rb.num_rows
+            if jthreshold and rtotal > jthreshold:
+                return None  # grace-join scale: host path
+        right = DataBlock.concat(rblocks) if rblocks else None
+        nb_rows = right.num_rows if right is not None else 0
+        matcher = None
+        if nb_rows:
+            rkeys = [Evaluator(right).run(k) for k in join.right_keys]
+            matcher = JoinMatcher.build(rkeys)
+            if matcher is None:
+                return _JOIN_FUSE_INELIGIBLE
+            if join.runtime_filter:
+                ex._push_join_runtime_filter(join, right)
+
+        # build-side group codes + per-entry agg value matrices
+        rview = rev = None
+        if nb_rows:
+            rview = DataBlock(out_names[nl:], list(right.columns), nb_rows)
+            rev = Evaluator(rview)
+        r_key_cols = {}
+        b_codes = []
+        for ki, (_, e) in enumerate(agg.keys):
+            if key_sides[ki] == "R" and rev is not None:
+                col = rev.run(e)
+                r_key_cols[ki] = col
+                b_codes.append(factorize_column(col))
+        if b_codes:
+            gid_b, rep_b = composite_group(b_codes)
+            nb = len(rep_b)
+        else:
+            gid_b = np.zeros(nb_rows, np.int64)
+            rep_b = np.zeros(1, np.int64)
+            nb = 1
+        widths = []
+        for entry in agg.aggs:
+            sub = device_agg_plan([entry])
+            widths.append(len(sub[0]))
+        offs = np.concatenate([[0], np.cumsum(widths)]).astype(int)
+        m = int(offs[-1])
+        bmats = {}
+        for ai, (entry, side) in enumerate(zip(agg.aggs, agg_sides)):
+            if side == "R" and rev is not None:
+                sub_ops, sub_spec = device_agg_plan([entry])
+                cols = [rev.run(e) for e in entry[2]]
+                bmats[ai] = device_agg_values([entry], sub_spec, sub_ops,
+                                              [cols], nb_rows)
+
+        # ---- probe side streams; keep only matched-pair projections
+        athreshold = agg.spill_threshold_rows
+        l_key_parts = {ki: [] for ki, s in enumerate(key_sides) if s == "L"}
+        l_arg_parts = {ai: [] for ai, s in enumerate(agg_sides)
+                       if s == "L" and agg.aggs[ai][2]}
+        pair_r_parts, count_parts = [], []
+        total_pairs = 0
+        for lblock in ex.execute_plan_blocks(join.left):
+            if lblock.num_rows == 0 or matcher is None:
+                continue
+            lev0 = Evaluator(lblock)
+            lkeys = [lev0.run(k) for k in join.left_keys]
+            lidx, ridx = matcher.probe(lkeys)
+            if not len(lidx):
+                continue
+            total_pairs += len(lidx)
+            if athreshold and total_pairs > athreshold:
+                return None  # spill scale: host grace-partition path
+            lview = DataBlock(out_names[:nl], list(lblock.columns),
+                              lblock.num_rows)
+            lev = Evaluator(lview)
+            for ki in l_key_parts:
+                l_key_parts[ki].append(lev.run(agg.keys[ki][1]).take(lidx))
+            for ai in l_arg_parts:
+                l_arg_parts[ai].append(
+                    [lev.run(e).take(lidx) for e in agg.aggs[ai][2]])
+            pair_r_parts.append(ridx)
+            count_parts.append(len(lidx))
+
+        def cat(parts):
+            return parts[0] if len(parts) == 1 else Column.concat(parts)
+
+        P = total_pairs
+        it = self.sort_plan.items[0]
+        nulls_first = it.nulls_first if it.nulls_first is not None \
+            else False
+        if P:
+            ridx_all = np.concatenate(pair_r_parts)
+            l_key_cols = {ki: cat(ps) for ki, ps in l_key_parts.items()}
+            p_codes = [factorize_column(l_key_cols[ki])
+                       for ki in sorted(l_key_cols)]
+            if p_codes:
+                gid_p, rep_p = composite_group(p_codes)
+                np_ = len(rep_p)
+            else:
+                gid_p = np.zeros(P, np.int64)
+                rep_p = np.zeros(1, np.int64)
+                np_ = 1
+            final_n = np_ * nb
+            if final_n > (1 << 21):
+                return None  # padded group state would not fit the device budget
+            gids = gid_p * nb + gid_b[ridx_all]
+
+            vals = np.zeros((P, m + 1), np.float64)
+            vals[:, m] = 1.0  # hidden "seen" count column
+            for ai, side in enumerate(agg_sides):
+                lo, hi = offs[ai], offs[ai + 1]
+                if side == "R":
+                    vals[:, lo:hi] = bmats[ai][ridx_all]
+                else:
+                    entry = agg.aggs[ai]
+                    sub_ops, sub_spec = device_agg_plan([entry])
+                    cols = ([cat([p[t] for p in l_arg_parts[ai]])
+                             for t in range(len(entry[2]))]
+                            if entry[2] else None)
+                    vals[:, lo:hi] = device_agg_values(
+                        [entry], sub_spec, sub_ops, [cols], P)
+
+            seen_pred = ("gt", ("leaf", ("col", m, -1)), ("const", 0.0))
+            hcode2 = seen_pred if self.hcode is None \
+                else ("and", seen_pred, self.hcode)
+
+        def device_half():
+            if P == 0:
+                top_gids = np.zeros(0, np.int64)
+                rows = np.zeros((0, m), np.float32)
+                gid_p_win = gid_b_win = top_gids
+            else:
+                top_gids, rows = sharded_grouped_agg_topn(
+                    mesh, gids, vals, final_n, list(self.ops) + ["sum"],
+                    self.key, int(self.sort_plan.limit), it.asc,
+                    nulls_first, hcode2)
+                rows = rows[:, :m]
+                gid_p_win = top_gids // nb
+                gid_b_win = top_gids % nb
+            out_cols = []
+            for ki, (name, e) in enumerate(agg.keys):
+                if key_sides[ki] == "L":
+                    if P == 0:
+                        out_cols.append(Column.from_pylist([], e.dtype))
+                    else:
+                        out_cols.append(
+                            l_key_cols[ki].take(rep_p[gid_p_win]))
+                else:
+                    if nb_rows == 0 or P == 0:
+                        out_cols.append(Column.from_pylist([], e.dtype))
+                    else:
+                        out_cols.append(
+                            r_key_cols[ki].take(rep_b[gid_b_win]))
+            out_cols += finalize_device_agg(agg.aggs, self.spec, rows)
+            names = [n for n, _ in agg.keys] + [n for n, _, _ in agg.aggs]
+            block = DataBlock(names, out_cols, len(top_gids))
+            if self.project is not None:
+                ev = Evaluator(block)
+                cols = [ev.run(e) for _, e in self.project.items]
+                block = DataBlock([n for n, _ in self.project.items], cols,
+                                  block.num_rows)
+            return block
+
+        return device_half
 
 
 def match_agg_topn(sort_plan) -> Optional[AggTopNFragment]:

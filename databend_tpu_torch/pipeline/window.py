@@ -146,11 +146,9 @@ def _try_distributed_window(plan: WindowPlan, blocks, part_keys, names):
     except Exception:
         return None
     gids, _ = composite_group([factorize_column(c) for c in key_cols])
-    try:
-        _, vals, shard_of = shuffle_by_key(
-            mesh, gids, np.arange(n, dtype=np.float64)[:, None])
-    except Exception:
-        return None
+    # the exchange uploads the rows: from there on an error propagates
+    _, vals, shard_of = shuffle_by_key(
+        mesh, gids, np.arange(n, dtype=np.float64)[:, None])
     if vals.shape[0] != n:
         return None
     row_ids = vals[:, 0].astype(np.int64)

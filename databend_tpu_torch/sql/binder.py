@@ -1662,10 +1662,11 @@ class Binder:
         if scan is None:
             return
         pd = scan.pushdown
-        # The mesh-sharded prune needs the `parallel` package, which the
-        # port has not ported yet (ROADMAP item 11): a host with several
-        # cards answers on one until then.
-        pd.enable_distributed = False
+        if self.session.settings.get("enable_distributed_pruning"):
+            # the reference's jax.device_count() > 1: a mesh over two or
+            # more cards, or an installed one
+            from ..parallel.mesh import get_default_mesh
+            pd.enable_distributed = get_default_mesh() is not None
         pd.vector_search_mode = str(
             self.session.settings.get("vector_search_mode"))
         pd.vector_exact_scan_max_rows = int(

@@ -344,13 +344,63 @@ class FusePruner:
 
 
     def _vector_prune_distributed(self, blocks, info, q, limit):
-        """Mesh-sharded exact top-k across candidate blocks. Needs the
-        ``parallel`` package, which the port has not ported yet (ROADMAP
-        item 11); the binder keeps ``enable_distributed`` off until then,
-        so this is never reached."""
-        raise NotImplementedError(
-            "the mesh-sharded vector prune is not ported to "
-            "databend_tpu_torch yet (ROADMAP item 11)")
+        """Mesh-sharded exact top-k across candidate blocks on
+        ``get_default_mesh()`` (its devices as one shard axis); returns
+        pruned blocks with vector_scores, or None to fall back
+        single-device. The decline happens only before the first upload:
+        from the upload on, an error propagates."""
+        import numpy as np
+        import torch
+        from ....parallel import shard_rows, sharded_brute_force_topk
+        from ....parallel.mesh import (DP_AXIS, P, get_default_mesh,
+                                       make_mesh, put_sharded)
+        mesh = get_default_mesh()
+        if mesh is None:
+            return None
+        if mesh.shape[DP_AXIS] > 1:
+            mesh = make_mesh(devices=list(mesh.devices.flat))
+        metric = info.func_name.replace("_distance", "")
+        cols = []
+        offsets = [0]
+        for pb in blocks:
+            b = self.table.read_block(pb.meta, [info.column])
+            arr = np.asarray(b.column(info.column).data, np.float32)
+            cols.append(arr)
+            offsets.append(offsets[-1] + arr.shape[0])
+        corpus = np.concatenate(cols, axis=0)
+        if metric == "cosine":
+            from ....ops.distance import normalize
+            corpus = normalize(torch.from_numpy(corpus)).numpy()
+            qn = normalize(torch.from_numpy(q.astype(np.float32))).numpy()
+            metric_used, qq = "ip", qn
+        else:
+            metric_used, qq = ("l2" if metric == "l2" else metric), q
+        x_dev, n_valid = shard_rows(corpus, mesh)
+        q_dev = put_sharded(np.asarray(qq, np.float32), mesh,
+                            P(DP_AXIS, None))
+        k = min(limit, n_valid)
+        dists, ids = sharded_brute_force_topk(mesh, q_dev, x_dev, k,
+                                              metric_used, n_valid=n_valid)
+        dists = np.asarray(dists)[0]
+        ids = np.asarray(ids)[0]
+        if metric == "cosine":
+            dists = 1.0 + dists  # ip = -dot on normalized vectors
+        results = []
+        bounds = np.asarray(offsets)
+        for gid, s in zip(ids.tolist(), dists.tolist()):
+            if gid < 0 or gid >= n_valid:
+                continue
+            bi = int(np.searchsorted(bounds, gid, side="right") - 1)
+            results.append((bi, gid - int(bounds[bi]), float(s)))
+        per_block = {}
+        for bi, r, s in results:
+            per_block.setdefault(bi, []).append((r, s))
+        out = []
+        for bi, pb in enumerate(blocks):
+            if bi in per_block:
+                pb.vector_scores = per_block[bi]
+                out.append(pb)
+        return out
 
 
 def _num(v):

@@ -24,10 +24,11 @@ REF = os.path.join(REPO, "databend_tpu")
 PORT_OWN = {
     "__init__.py": "package docstring: the port's own host layers",
     "__main__.py": "usage, prog and version strings name databend_tpu_torch",
-    "ops/__init__.py": "docstring: quantization is not ported",
     "ops/distance.py": "torch distances",
     "ops/topk.py": "torch top-k",
     "ops/flash_topk.py": "wrapper of the CUDA group-min kernel",
+    "ops/quantization.py": "SQ-u8 on torch: the exact f32 K-sliced int8 "
+                           "product, tie-rule selections",
     "index/hnsw/__init__.py": "docstring: the torch build and search",
     "index/hnsw/build.py": "graph build on torch: kNN graph, prune, "
                            "dedupe + sort",
@@ -36,12 +37,15 @@ PORT_OWN = {
     "index/kmeans.py": "Lloyd's iteration on torch",
     "index/inverted/device.py": "BM25 programs on torch, the impact scorer "
                                 "through the CUDA kernel",
-    "parallel/__init__.py": "docstring: the one-device decline",
-    "parallel/mesh.py": "a grid of torch devices; get_default_mesh is None "
-                        "until the exchanges are ported (item 11b)",
-    "parallel/fragmenter.py": "the host halves only; execute declines "
-                              "without a mesh (item 11b)",
-    "parallel/exchange.py": "names only, each raises if called (item 11b)",
+    "parallel/mesh.py": "a grid of torch devices, sharded values as one "
+                        "tensor per position, collectives over shard lists",
+    "parallel/distributed.py": "sharded top-k / aggregate / k-means as "
+                               "per-shard phases and collectives on torch",
+    "parallel/exchange.py": "the exchanges as per-shard torch phases; host "
+                            "decisions before the first upload",
+    "parallel/fragmenter.py": "the fused fragment's programs on torch; the "
+                              "join fusion's host half returns its device "
+                              "half, whose errors propagate",
     "pipeline/device_scan_agg.py": "resident columns and limb sums on torch, "
                                    "the grouped sums through the CUDA kernel; "
                                    "device errors propagate, the fused "
@@ -55,11 +59,15 @@ PORT_OWN = {
                                  "sort, checked gathers); a float HAVING "
                                  "constant compares the finalized float64",
     "pipeline/executor.py": "_brute_force_scores on torch",
+    "pipeline/window.py": "the key shuffle's errors propagate: it uploads "
+                          "the rows",
     "expression/functions/vector_fns.py": "_rowwise device branch on torch",
     "storage/fuse/table.py": "vector columns and exact scans on torch",
     "storage/fuse/pruning/pruner.py":
-        "_vector_prune_distributed raises NotImplementedError (item 11)",
-    "sql/binder.py": "_finalize_scan: enable_distributed off, no jax",
+        "_vector_prune_distributed on get_default_mesh; declines only "
+        "before the first upload",
+    "sql/binder.py": "_finalize_scan: enable_distributed from "
+                     "get_default_mesh, no jax",
     "service/prepared.py": "serving programs on torch, flash approximate "
                            "mode, match() embeddings through backend",
     "service/system_tables.py": "build_options, clusters and credits "
