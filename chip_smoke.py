@@ -4,9 +4,10 @@ the HNSW index (graph build at insert, beam search from SQL), the device
 scan-aggregate route (GROUP BY over card-resident columns), the
 join-aggregate route with the finalize fusion (TPC-H joins, HAVING and
 top-n on the card), distributed SQL over a mesh of shards and the
-multi-shard exact top-k.
+multi-shard exact top-k, in one process and across query processes.
 
     python3 chip_smoke.py [--profile] [--diagnose]
+    python3 chip_smoke.py --multihost     # [multihost] alone (see 11)
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, power limit, torch and CUDA versions;
@@ -174,9 +175,21 @@ Phases (any failure exits non-zero and prints no result line):
      (x 4, rounded: every distance and cluster sum exact) with 64
      centroids: counts equal numpy's and sum to n, centroids within rel
      1e-4 of a numpy Lloyd step, recall@10 1.0;
-  11. [suites]: ``python -m databend_tpu_torch sqllogic tests/suites/index``
+  11. [multihost]: worker processes of this script (``--multihost-worker``)
+     register in a meta store and join one process group through
+     ``parallel.multihost.join_cluster_mesh``: 2 ranks sharing cuda:0
+     over gloo through host memory (2 positions each), or 4 ranks one card
+     each over NCCL where there are 4 cards; the rule must choose that
+     backend. Each rank reads only its rows of [mesh]'s corpus (written to
+     a .npy by [mesh]) and runs its f32 and bf16 top-10 (ids equal to
+     [mesh]'s and the f64 truth, bf16 recall >= 0.95; upload, first and
+     warm ms, collective ms, device busy without NCCL's kernels), then
+     [dist]'s statements with ``enable_distributed_execution`` on over the
+     same TPC-H data root (each exchange called, rows alike [dist]'s). A
+     worker that fails or outlives MULTIHOST_TIMEOUT fails the run;
+  12. [suites]: ``python -m databend_tpu_torch sqllogic tests/suites/index``
      on the card exits 0;
-  12. stand-alone: every loaded port module (the device BM25, HNSW and
+  13. stand-alone: every loaded port module (the device BM25, HNSW and
      scan-aggregate modules among them) comes from the port's own directory,
      and no jax or databend_tpu module was loaded.
 The last line is {"ok": true, "device": {...}}.
@@ -235,6 +248,8 @@ STEP_ROWS = 1 << 20    # [mesh]: sharded_search_step's corpus
 STEP_CENTROIDS = 64
 DIST_VEC_ROWS = 262_144  # [dist]: the vector table of the distributed prune
 DIST_RTOL = 1e-5       # [dist]: f32 sums of the exchanges against the host's
+MULTIHOST_TIMEOUT = 480      # [multihost]: seconds all workers may take
+MULTIHOST_GROUP_TIMEOUT = 300  # the workers' process group (each collective)
 MATCH_WORDS = ["weather", "news", "google", "maps", "cat", "videos", "python",
                "flights", "hotels", "music", "games", "sports", "stock",
                "market", "recipe", "travel"]
@@ -1645,10 +1660,10 @@ def phase_cluster(card):
 # --------------------------------------------------------- [sq8], [mesh]
 
 
-def device_busy(call, reps=3):
+def device_busy(call, reps=3, skip=None):
     """(whole-call ms on the host clock, device-busy ms: the summed time of
-    the profiler's device-side events) per call of ``call()``, after a
-    warm-up."""
+    the profiler's device-side events, but those whose name holds ``skip``)
+    per call of ``call()``, after a warm-up."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
@@ -1659,8 +1674,8 @@ def device_busy(call, reps=3):
             call()
         torch.cuda.synchronize()
         whole = (time.perf_counter() - t0) / reps * 1e3
-    busy = sum(_device_us(e) for e in _kernels(prof.key_averages())) \
-        / reps / 1e3
+    busy = sum(_device_us(e) for e in _kernels(prof.key_averages())
+               if skip is None or skip not in e.key.lower()) / reps / 1e3
     check(busy > 0, "the profiler saw no device time")
     return whole, busy
 
@@ -1768,12 +1783,14 @@ def mesh_truth(x, q):
     return d, np.take_along_axis(top, order, 1)
 
 
-def phase_mesh(card):
+def phase_mesh(card, work):
     """BASELINE configuration 5 at Deep10M's shape
     (benchmarks/mesh_knn_bench.py): MESH_ROWS x MESH_DIM standard normal
     rows (seed MESH_SEED) row-sharded over a MESH_SHARDS-shard mesh, the
     exact sharded top-k (B = MESH_B, k = 10, l2) in f32 and bf16; then
-    ``sharded_search_step`` on a (2, 2) mesh."""
+    ``sharded_search_step`` on a (2, 2) mesh. The rows and queries are
+    written to ``work`` for [multihost]; returns the f32 ids, the f64
+    truth's ids and its k-th distances."""
     from databend_tpu_torch import backend, parallel
     from databend_tpu_torch.ops.topk import chunked_topk_smallest
     from databend_tpu_torch.parallel import distributed
@@ -1789,6 +1806,11 @@ def phase_mesh(card):
     d, truth = mesh_truth(x, q)
     print(f"[mesh] {MESH_ROWS} x {MESH_DIM} rows + f64 truth in "
           f"{time.perf_counter() - t0:.1f} s (host)")
+    t0 = time.perf_counter()
+    np.save(os.path.join(work, "mesh_x.npy"), x)
+    np.save(os.path.join(work, "mesh_q.npy"), q)
+    print(f"[mesh] rows written for [multihost] ({x.nbytes / 2 ** 30:.2f} "
+          f"GiB): {time.perf_counter() - t0:.1f} s (host)")
 
     devs, how = mesh_devices(MESH_SHARDS)
     m = pm.make_mesh(MESH_SHARDS, devices=devs)
@@ -1836,9 +1858,10 @@ def phase_mesh(card):
     check(r == 1.0, f"[mesh] f32 recall {r}")
     check(err <= 1e-3 * float(true.max()), f"[mesh] distances off by {err}")
 
+    knn_ref = {"ids": iv, "truth": truth,
+               "kth": np.take_along_axis(d, truth, 1).max(1)}
     bv, bi, first, warm = timed(True)
-    rb = recall(bi.astype(np.int64), d, np.take_along_axis(d, truth, 1)
-                .max(1))
+    rb = recall(bi.astype(np.int64), d, knn_ref["kth"])
     print(f"[mesh] bf16 B={MESH_B} k={K}: first batch {first:.1f} ms, warm "
           f"{warm:.1f} ms (median of 3), recall@10 {rb} [{card}]")
     check(rb >= 0.95, f"[mesh] bf16 recall {rb}")
@@ -1903,6 +1926,7 @@ def phase_mesh(card):
     check(cerr <= 1e-4 * float(np.abs(ref).max()),
           f"[mesh] centroids off the numpy Lloyd step by {cerr}")
     check(rs == 1.0, f"[mesh] search-step recall {rs}")
+    return knn_ref
 
 
 # ------------------------------------------------------------------ [dist]
@@ -1940,13 +1964,13 @@ DIST_STATEMENTS = [
 
 
 def dist_same(want, got):
-    """Rows of two QueryResults alike: integer and string columns equal; a
+    """Rows of two result blocks alike: integer and string columns equal; a
     float column whose host values are all integers below 2^24 (counts,
     integer sums, min / max of an integer column) equal; other float
     columns within rel DIST_RTOL, the exchanges' f32 contract."""
-    wc, gc = list(want.block.items()), list(got.block.items())
+    wc, gc = list(want.items()), list(got.items())
     if [n for n, _ in wc] != [n for n, _ in gc] \
-            or want.block.num_rows != got.block.num_rows:
+            or want.num_rows != got.num_rows:
         return False
     for (_, a), (_, b) in zip(wc, gc):
         if (a.validity is None) != (b.validity is None) or (
@@ -1972,25 +1996,11 @@ def dist_same(want, got):
     return True
 
 
-def phase_dist(card, ctx, profile):
-    """Distributed SQL on the card in the [tpch] session (TPC-H SF1, seed
-    42) under an installed mesh of 4 shards: each of DIST_STATEMENTS with
-    ``enable_distributed_execution`` off, then on (the device-local routes
-    off, so that the host operator and the exchange answer), twice each;
-    rows alike (``dist_same``), the exchange it is meant for called, the
-    warm call of each timed. Then a literal KNN statement over a
-    DIST_VEC_ROWS-row table (above ``vector_host_scan_max_rows``) with
-    ``enable_distributed_pruning`` off, then on: the mesh-sharded prune
-    runs, ids equal. With --profile, each statement's warm call with the
-    setting on under torch.profiler."""
+def spy_exchanges(calls):
+    """Count the calls of each exchange entry point in ``calls``; returns
+    the function that puts the real ones back."""
     from databend_tpu_torch import parallel
-    from databend_tpu_torch.expression import Column, DataBlock
     from databend_tpu_torch.parallel import exchange, fragmenter
-    from databend_tpu_torch.parallel import mesh as pm
-    from databend_tpu_torch.types import VectorType
-
-    devs, how = mesh_devices(4)
-    calls = {}
     real = {}
     spied = [(exchange, n) for n in (
         "sharded_grouped_agg", "sharded_shuffle_grouped_agg", "sharded_topn",
@@ -2007,6 +2017,33 @@ def phase_dist(card, ctx, profile):
     for mod, name in spied:
         real[(mod, name)] = getattr(mod, name)
         setattr(mod, name, counted(name, real[(mod, name)]))
+
+    def restore():
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+    return restore
+
+
+def phase_dist(card, ctx, profile):
+    """Distributed SQL on the card in the [tpch] session (TPC-H SF1, seed
+    42) under an installed mesh of 4 shards: each of DIST_STATEMENTS with
+    ``enable_distributed_execution`` off, then on (the device-local routes
+    off, so that the host operator and the exchange answer), twice each;
+    rows alike (``dist_same``), the exchange it is meant for called, the
+    warm call of each timed. Then a literal KNN statement over a
+    DIST_VEC_ROWS-row table (above ``vector_host_scan_max_rows``) with
+    ``enable_distributed_pruning`` off, then on: the mesh-sharded prune
+    runs, ids equal. With --profile, each statement's warm call with the
+    setting on under torch.profiler. Returns each statement's result block
+    with the setting on."""
+    from databend_tpu_torch.expression import Column, DataBlock
+    from databend_tpu_torch.parallel import mesh as pm
+    from databend_tpu_torch.types import VectorType
+
+    devs, how = mesh_devices(4)
+    calls = {}
+    on_rows = {}
+    restore = spy_exchanges(calls)
     old = pm.set_default_mesh(pm.make_mesh(4, devices=devs))
     print(f"[dist] mesh: {how}; the device-local routes off for the "
           "comparison")
@@ -2028,7 +2065,8 @@ def phase_dist(card, ctx, profile):
                 else:
                     want = res
             ctx.sql("SET enable_distributed_execution = 0")
-            ok = dist_same(want, got)
+            on_rows[name] = got.block
+            ok = dist_same(want.block, got.block)
             print(f"[dist] {name} ({what}, {want.block.num_rows} rows): "
                   f"warm off {times[0]:.1f} ms, on {times[1]:.1f} ms; calls "
                   f"{took}; rows alike: {ok} [{card}]")
@@ -2082,8 +2120,269 @@ def phase_dist(card, ctx, profile):
         pm.set_default_mesh(old)
         ctx.sql("SET enable_device_local_execution = 1")
         ctx.sql("SET enable_distributed_execution = 0")
-        for (mod, name), fn in real.items():
-            setattr(mod, name, fn)
+        restore()
+    return on_rows
+
+
+# ------------------------------------------------------------- [multihost]
+
+
+def multihost_layout():
+    """(ranks, mesh positions a rank, the backend the rule must choose, a
+    description, each rank's environment): one rank a card over NCCL where
+    there are MESH_SHARDS cards, else two ranks sharing cuda:0 (two logical
+    shards each) over gloo through host memory."""
+    n = torch.cuda.device_count()
+    if n >= MESH_SHARDS:
+        vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+        ids = vis.split(",") if vis else [str(i) for i in range(n)]
+        return (MESH_SHARDS, 1, "nccl",
+                f"{MESH_SHARDS} ranks, one card each",
+                [{"CUDA_VISIBLE_DEVICES": ids[r]}
+                 for r in range(MESH_SHARDS)])
+    return (2, MESH_SHARDS // 2, "gloo",
+            f"2 ranks sharing cuda:0, {MESH_SHARDS // 2} logical shards each",
+            [{}, {}])
+
+
+def _free_port() -> int:
+    import socket
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def phase_multihost(card, work, mesh_ref, dist_rows):
+    """A mesh that spans query processes: ``multihost_layout()``'s workers
+    (this script with ``--multihost-worker``) register in a meta store
+    under ``work`` and join one process group through
+    ``join_cluster_mesh``, MESH_SHARDS positions in all. Each rank: (a)
+    [mesh]'s configuration 5 from only its own rows of the corpus [mesh]
+    wrote (f32 ids equal to [mesh]'s and to the f64 truth, bf16 recall
+    >= 0.95); (b) DIST_STATEMENTS with ``enable_distributed_execution`` on
+    over the TPC-H data root [dist] used, each exchange called, rows alike
+    ``dist_rows`` (``dist_same``). A worker that fails or outlives
+    MULTIHOST_TIMEOUT fails the run."""
+    import pickle
+    ranks, per, want, how, envs = multihost_layout()
+    meta = os.path.join(work, "cluster.db")
+    if os.path.exists(meta):
+        os.remove(meta)
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    print(f"[multihost] {how}: {ranks} workers, {per} positions each, the "
+          f"rule must choose {want} [{card}]")
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(ranks):
+        env = {k: v for k, v in os.environ.items()
+               if k != "DATABEND_TORCH_DEVICE"}
+        env.update(envs[r])
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+             work, str(_free_port()), str(ranks), str(per)],
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            left = MULTIHOST_TIMEOUT - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(left, 1.0))[0])
+    except subprocess.TimeoutExpired:
+        check(False, f"[multihost] a worker outlived {MULTIHOST_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for out in outs:
+        print("\n".join(line for line in out.splitlines()
+                        if line.startswith("[multihost]")))
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"[multihost] worker {r} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    wall = time.perf_counter() - t0
+    res = []
+    for r in range(ranks):
+        with open(os.path.join(work, f"multihost{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    x = np.load(os.path.join(work, "mesh_x.npy"), mmap_mode="r")
+    q = np.load(os.path.join(work, "mesh_q.npy")).astype(np.float64)
+    for r, got in enumerate(res):
+        check(got["backend"] == want, f"[multihost] rank {r} took backend "
+                                      f"{got['backend']}, the rule {want}")
+        f32 = got["ids0"]
+        check(np.array_equal(f32, mesh_ref["ids"])
+              and np.array_equal(f32, mesh_ref["truth"]),
+              f"[multihost] rank {r}: f32 ids differ from [mesh]'s or the "
+              "f64 truth")
+        bf = got["ids1"].astype(np.int64)
+        d = ((x[bf.reshape(-1)].astype(np.float64).reshape(
+            bf.shape + (-1,)) - q[:, None, :]) ** 2).sum(-1)
+        rb = float((d <= mesh_ref["kth"][:, None]
+                    + 1e-9 * np.abs(mesh_ref["kth"][:, None])).mean())
+        check(rb >= 0.95, f"[multihost] rank {r}: bf16 recall {rb}")
+        alike = {}
+        for name, what, names, _ in DIST_STATEMENTS:
+            took = got[f"calls_{name}"]
+            check(all(took.get(n, 0) >= 2 for n in names),
+                  f"[multihost] rank {r} {name}: {names} not called: {took}")
+            alike[name] = dist_same(dist_rows[name], got[f"rows_{name}"])
+            check(alike[name], f"[multihost] rank {r} {name}: rows differ "
+                               "from the single-process [dist] rows")
+        print(f"[multihost] rank {r}: backend {got['backend']} (the rule's "
+              f"{want}), owners {got['owners']}; f32 ids equal to [mesh]'s "
+              f"and the f64 truth: True, bf16 recall@10 {rb}; [dist] rows "
+              f"alike the single-process rows: {alike} [{card}]")
+    print(f"[multihost] {ranks} workers done in {wall:.1f} s (start to "
+          f"exit, process start and data reads included) [{card}]")
+
+
+def multihost_worker(work, port, ranks, per):
+    """One query process of [multihost] (``--multihost-worker WORK PORT
+    RANKS POSITIONS``): registers in ``WORK/cluster.db``, joins the mesh,
+    runs (a) and (b) of ``phase_multihost`` and writes what it read to
+    ``WORK/multihost<rank>.pkl``."""
+    import pickle
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from databend_tpu_torch import parallel
+    from databend_tpu_torch.meta.cluster import ClusterDiscovery
+    from databend_tpu_torch.meta.kv import MetaStore
+    from databend_tpu_torch.parallel import mesh as pm
+    from databend_tpu_torch.parallel import multihost
+    from databend_tpu_torch.service.session import SessionContext
+    from databend_tpu_torch.utils.metrics import METRICS
+
+    card = card_line()
+    meta = MetaStore(os.path.join(work, "cluster.db"))
+    node = ClusterDiscovery.local_node(address=f"localhost:{port}")
+    ClusterDiscovery(meta).register(node)
+    t0 = time.perf_counter()
+    mesh, rank = multihost.join_cluster_mesh(
+        meta, node.node_id, ranks, timeout=MULTIHOST_GROUP_TIMEOUT,
+        local_device_count=per)
+    tag = f"[multihost] rank {rank}"
+    mine = mesh.local_positions()
+    devs = sorted({mesh.devices[i, j] for i, j in mine}, key=str)
+    print(f"{tag}: joined in {time.perf_counter() - t0:.1f} s; backend "
+          f"{mesh.backend}, owners {mesh.owners.tolist()}, its positions "
+          f"{[j for _, j in mine]} on {[str(d) for d in devs]} "
+          f"(node {node.node_id}) [{card}]", flush=True)
+    out = {"backend": mesh.backend, "owners": mesh.owners.tolist()}
+
+    def sync():
+        for d in devs:
+            torch.cuda.synchronize(d)
+
+    def collectives():
+        snap = METRICS.snapshot()
+        return (snap.get("mesh_collectives", 0.0),
+                snap.get("mesh_collective_seconds", 0.0))
+
+    # (a) configuration 5: this rank reads and uploads only its own rows
+    rows = MESH_ROWS // MESH_SHARDS
+    cols = [j for _, j in mine]
+    t0 = time.perf_counter()
+    x = np.load(os.path.join(work, "mesh_x.npy"), mmap_mode="r")
+    local = np.ascontiguousarray(x[cols[0] * rows:(cols[-1] + 1) * rows])
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x_dev = pm.from_process_local(mesh, pm.P(pm.SHARD_AXIS, None), local)
+    sync()
+    upload_s = time.perf_counter() - t0
+    del local, x
+    q = np.load(os.path.join(work, "mesh_q.npy"))
+    q_dev = pm.put_sharded(q, mesh, pm.P(pm.DP_AXIS, None))
+
+    def run(bf16):
+        dv, iv = parallel.sharded_brute_force_topk(
+            mesh, q_dev, x_dev, K, "l2", bf16=bf16, n_valid=MESH_ROWS)
+        return np.asarray(dv), np.asarray(iv)
+
+    for bf16 in (False, True):
+        t0 = time.perf_counter()
+        _, iv = run(bf16)
+        first = (time.perf_counter() - t0) * 1e3
+        stats = collectives()
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(bf16)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        coll_n, coll_s = np.subtract(collectives(), stats) / 3
+        coll_ms = coll_s * 1e3
+        out[f"ids{int(bf16)}"] = iv
+        print(f"{tag}: {'bf16' if bf16 else 'f32'} B={MESH_B} k={K} over "
+              f"{len(cols)} x {rows} own rows (read {read_s:.2f} s, upload "
+              f"{upload_s:.2f} s): first batch {first:.1f} ms, warm "
+              f"{float(np.median(warm)):.1f} ms (median of 3), collectives "
+              f"{coll_ms:.3f} ms in {coll_n:.0f} calls a batch [{card}]",
+              flush=True)
+    # NCCL's kernels wait on the card for the slowest rank, on a stream of
+    # their own: their time is not work, and it overlaps the scans'
+    whole, busy = device_busy(lambda: run(False), skip="nccl")
+    print(f"{tag}: a whole f32 batch {whole:.3f} ms, device busy {busy:.3f} "
+          f"ms (this rank's kernels and copies but NCCL's), idle share "
+          f"{100 * (1 - busy / whole):.0f}% [{card}]", flush=True)
+    del x_dev
+
+    # (b) the [dist] statements on the shared TPC-H data root
+    calls = {}
+    restore = spy_exchanges(calls)
+    t0 = time.perf_counter()
+    ctx = SessionContext(os.path.join(work, "tpch"))
+    ctx.sql("SET enable_device_local_execution = 0")
+    ctx.sql("SET enable_distributed_execution = 1")
+    try:
+        for name, what, _, sql in DIST_STATEMENTS:
+            calls.clear()
+            t1 = time.perf_counter()
+            ctx.sql(sql)
+            sync()
+            first = (time.perf_counter() - t1) * 1e3
+            stats = collectives()
+            t1 = time.perf_counter()
+            res = ctx.sql(sql)
+            sync()
+            warm = (time.perf_counter() - t1) * 1e3
+            coll_ms = (collectives()[1] - stats[1]) * 1e3
+            out[f"rows_{name}"] = res.block
+            out[f"calls_{name}"] = dict(calls)
+            print(f"{tag}: {name} ({what}, {res.block.num_rows} rows): first "
+                  f"{first:.1f} ms, warm {warm:.1f} ms, collectives "
+                  f"{coll_ms:.1f} ms of it; calls {dict(calls)} [{card}]",
+                  flush=True)
+    finally:
+        restore()
+        ctx.close()
+    print(f"{tag}: the statements took {time.perf_counter() - t0:.1f} s "
+          f"with the session's open [{card}]", flush=True)
+    with open(os.path.join(work, f"multihost{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    multihost.leave_cluster_mesh()
+    return 0
+
+
+def multihost_alone(card):
+    """``--multihost``: [multihost] alone, with what it compares against
+    made first: TPC-H SF1 loaded and [dist] run in one process, then
+    [mesh]."""
+    import databend_tpu_torch as dt
+    from benchmarks.tpch import generate
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        ctx = dt.SessionContext(os.path.join(work, "tpch"))
+        load_tpch_tables(ctx, generate(AGG_SF, seed=AGG_SEED))
+        print(f"[multihost] TPC-H sf {AGG_SF} generated and loaded: "
+              f"{time.perf_counter() - t0:.1f} s (host)")
+        try:
+            dist_rows = phase_dist(card, ctx, False)
+        finally:
+            ctx.close()
+        mesh_ref = phase_mesh(card, work)
+        phase_multihost(card, work, mesh_ref, dist_rows)
 
 
 # ------------------------------------------------------------------- [agg]
@@ -2388,7 +2687,7 @@ def agg_statements():
          "GROUP BY l_returnflag")]
 
 
-def phase_agg(card, profile):
+def phase_agg(card, profile, root):
     """The device scan-aggregate route on TPC-H SF1 lineitem
     (benchmarks/tpch.py, 6,000,000 rows, seed 42): each statement of
     ``agg_statements()`` on the host (route off), then routed: the first call
@@ -2397,9 +2696,11 @@ def phase_agg(card, profile):
     named engine, and return the host's rows; Q1 and Q6 also a numpy
     computation in integer cents. Then Q1 once more with CHUNK_ROWS at
     AGG_CHUNK_ROWS (4 chunks combined on the host).
-    Then [tpch] (``phase_tpch``) in the same context, over this lineitem.
-    Returns the grouped_sums launches of the [agg] statements, the kernel's
-    inputs of each statement's first routed call, and the [tpch] launches."""
+    Then [tpch] (``phase_tpch``) and [dist] (``phase_dist``) in the same
+    context, over this lineitem, its data under ``root``. Returns the
+    grouped_sums launches of the [agg] statements, the kernel's inputs of
+    each statement's first routed call, the [tpch] launches and [dist]'s
+    result blocks."""
     import types as pytypes
     import databend_tpu_torch as dt
     from benchmarks.tpch import generate
@@ -2441,100 +2742,99 @@ def phase_agg(card, profile):
               f"[agg] route counts {before} -> {after} for: {sql}")
         return rows
 
-    with tempfile.TemporaryDirectory() as root:
-        ctx = dt.SessionContext(root)
-        real_gsums = dsa.gsums
-        dsa._build_program = program_spy
-        dsa.gsums = pytypes.SimpleNamespace(grouped_sums=sums_spy)
-        try:
+    ctx = dt.SessionContext(root)
+    real_gsums = dsa.gsums
+    dsa._build_program = program_spy
+    dsa.gsums = pytypes.SimpleNamespace(grouped_sums=sums_spy)
+    try:
+        t0 = time.perf_counter()
+        load_lineitem(ctx, li)
+        print(f"[agg] create + insert lineitem: "
+              f"{time.perf_counter() - t0:.1f} s")
+        table = ctx.table("lineitem")
+        snap_id = table.read_snapshot().snapshot_id
+        results = {}
+        gs.grouped_sums.launches = 0
+        statements = agg_statements()
+        for name, engine, sql in statements:
+            state["statement"] = name
+            ctx.sql("SET enable_device_local_execution = 0")
             t0 = time.perf_counter()
-            load_lineitem(ctx, li)
-            print(f"[agg] create + insert lineitem: "
-                  f"{time.perf_counter() - t0:.1f} s")
-            table = ctx.table("lineitem")
-            snap_id = table.read_snapshot().snapshot_id
-            results = {}
-            gs.grouped_sums.launches = 0
-            statements = agg_statements()
-            for name, engine, sql in statements:
-                state["statement"] = name
-                ctx.sql("SET enable_device_local_execution = 0")
+            host = ctx.sql(sql).rows()
+            host_s = time.perf_counter() - t0
+            ctx.sql("SET enable_device_local_execution = 1")
+            engines.clear()
+            t0 = time.perf_counter()
+            first = routed(sql)
+            first_s = time.perf_counter() - t0
+            resident = dsa.get_table_columns(table, snap_id).nbytes
+            warm = []
+            for _ in range(AGG_REPS):
                 t0 = time.perf_counter()
-                host = ctx.sql(sql).rows()
-                host_s = time.perf_counter() - t0
-                ctx.sql("SET enable_device_local_execution = 1")
-                engines.clear()
-                t0 = time.perf_counter()
-                first = routed(sql)
-                first_s = time.perf_counter() - t0
-                resident = dsa.get_table_columns(table, snap_id).nbytes
-                warm = []
-                for _ in range(AGG_REPS):
-                    t0 = time.perf_counter()
-                    again = routed(sql)
-                    warm.append(time.perf_counter() - t0)
-                    check(again == first, f"[agg] {name}: a warm call "
-                                          "differs from the first")
-                check(engines[:1] == [engine],
-                      f"[agg] {name}: engine {engines[:1]}, want {engine}")
-                check(same_rows(sorted(host), sorted(first)),
-                      f"[agg] {name}: routed rows differ from the host's: "
-                      f"{host[:3]} vs {first[:3]}")
-                if name == "q1":
-                    check(first == q1_truth, f"[agg] q1 differs from numpy: "
-                                             f"{first} vs {q1_truth}")
-                if name == "q6":
-                    check(first == q6_truth, f"[agg] q6 differs from numpy: "
-                                             f"{first} vs {q6_truth}")
-                results[name] = first
-                print(f"[agg] {name} ({engine}, {len(first)} rows): host "
-                      f"{host_s * 1e3:.1f} ms, first routed call "
-                      f"{first_s * 1e3:.1f} ms (resident forms "
-                      f"{resident / 2 ** 20:.1f} MiB), warm routed "
-                      f"{float(np.median(warm)) * 1e3:.3f} ms (median of "
-                      f"{AGG_REPS}; {min(warm) * 1e3:.3f}-"
-                      f"{max(warm) * 1e3:.3f}) [{card}]")
-            launches = gs.grouped_sums.launches
-            want = sum(AGG_REPS + 1 for _, e, _ in statements
-                       if e != "sort")
-            print(f"[agg] grouped_sums launches over the statements: "
-                  f"{launches} (one per routed mask / matmul / distinct "
-                  f"call: {want}) [{card}]")
-            check(launches == want, f"[agg] {launches} launches, want {want}")
+                again = routed(sql)
+                warm.append(time.perf_counter() - t0)
+                check(again == first, f"[agg] {name}: a warm call "
+                                      "differs from the first")
+            check(engines[:1] == [engine],
+                  f"[agg] {name}: engine {engines[:1]}, want {engine}")
+            check(same_rows(sorted(host), sorted(first)),
+                  f"[agg] {name}: routed rows differ from the host's: "
+                  f"{host[:3]} vs {first[:3]}")
+            if name == "q1":
+                check(first == q1_truth, f"[agg] q1 differs from numpy: "
+                                         f"{first} vs {q1_truth}")
+            if name == "q6":
+                check(first == q6_truth, f"[agg] q6 differs from numpy: "
+                                         f"{first} vs {q6_truth}")
+            results[name] = first
+            print(f"[agg] {name} ({engine}, {len(first)} rows): host "
+                  f"{host_s * 1e3:.1f} ms, first routed call "
+                  f"{first_s * 1e3:.1f} ms (resident forms "
+                  f"{resident / 2 ** 20:.1f} MiB), warm routed "
+                  f"{float(np.median(warm)) * 1e3:.3f} ms (median of "
+                  f"{AGG_REPS}; {min(warm) * 1e3:.3f}-"
+                  f"{max(warm) * 1e3:.3f}) [{card}]")
+        launches = gs.grouped_sums.launches
+        want = sum(AGG_REPS + 1 for _, e, _ in statements
+                   if e != "sort")
+        print(f"[agg] grouped_sums launches over the statements: "
+              f"{launches} (one per routed mask / matmul / distinct "
+              f"call: {want}) [{card}]")
+        check(launches == want, f"[agg] {launches} launches, want {want}")
 
-            # Q1 in AGG_CHUNK_ROWS chunks: new resident forms, chunk sums
-            # combined on the host
-            saved = dsa.CHUNK_ROWS
-            dsa._cache().clear()
-            dsa.CHUNK_ROWS = AGG_CHUNK_ROWS
-            try:
-                state["statement"] = "q1 chunked"
-                t0 = time.perf_counter()
-                chunked = routed(statements[0][2])
-                n_chunks = len(dsa.get_table_columns(table, snap_id)
-                               .cols["l_shipdate"]["codes"])
-                print(f"[agg] q1 in {n_chunks} chunks of {AGG_CHUNK_ROWS} "
-                      f"rows: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
-                      f"rows equal: {chunked == results['q1']} [{card}]")
-                check(n_chunks == -(-n // AGG_CHUNK_ROWS),
-                      f"[agg] {n_chunks} chunks")
-                check(chunked == results["q1"],
-                      "[agg] the chunked q1 differs from the one-chunk q1")
-            finally:
-                dsa.CHUNK_ROWS = saved
-                dsa._cache().clear()
-            if profile:
-                for name, _, sql in statements:
-                    profile_call(f"[agg] {name} warm routed call", card,
-                                 lambda r, sql=sql: ctx.sql(sql).rows())
-            tpch_launches = phase_tpch(card, profile, ctx, data, engines,
-                                       state)
-            phase_dist(card, ctx, profile)
-            return launches, captured, tpch_launches
+        # Q1 in AGG_CHUNK_ROWS chunks: new resident forms, chunk sums
+        # combined on the host
+        saved = dsa.CHUNK_ROWS
+        dsa._cache().clear()
+        dsa.CHUNK_ROWS = AGG_CHUNK_ROWS
+        try:
+            state["statement"] = "q1 chunked"
+            t0 = time.perf_counter()
+            chunked = routed(statements[0][2])
+            n_chunks = len(dsa.get_table_columns(table, snap_id)
+                           .cols["l_shipdate"]["codes"])
+            print(f"[agg] q1 in {n_chunks} chunks of {AGG_CHUNK_ROWS} "
+                  f"rows: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+                  f"rows equal: {chunked == results['q1']} [{card}]")
+            check(n_chunks == -(-n // AGG_CHUNK_ROWS),
+                  f"[agg] {n_chunks} chunks")
+            check(chunked == results["q1"],
+                  "[agg] the chunked q1 differs from the one-chunk q1")
         finally:
-            dsa._build_program = real_program
-            dsa.gsums = real_gsums
-            ctx.close()
+            dsa.CHUNK_ROWS = saved
+            dsa._cache().clear()
+        if profile:
+            for name, _, sql in statements:
+                profile_call(f"[agg] {name} warm routed call", card,
+                             lambda r, sql=sql: ctx.sql(sql).rows())
+        tpch_launches = phase_tpch(card, profile, ctx, data, engines,
+                                   state)
+        dist_rows = phase_dist(card, ctx, profile)
+        return launches, captured, tpch_launches, dist_rows
+    finally:
+        dsa._build_program = real_program
+        dsa.gsums = real_gsums
+        ctx.close()
 
 
 def load_tpch_tables(ctx, data, skip=()):
@@ -2861,9 +3161,19 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import databend_tpu_torch  # noqa: F401  (fails outside the repo)
 
+    args = sys.argv[1:]
+    if args[:1] == ["--multihost-worker"]:
+        return multihost_worker(args[1], args[2], int(args[3]), int(args[4]))
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    if "--multihost" in args:
+        multihost_alone(card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     build_kernels()
     kern = phase_kernels(card)
     imp, topk = phase_impact_kernels(card)
@@ -2884,12 +3194,15 @@ def main():
                             "impact_bm25_scores no time")
     phase_hnsw(card, profile)
     phase_cluster(card)
-    gs_launches, captured, tpch_launches = phase_agg(card, profile)
-    check(gs_launches > 0, "the [agg] path launched grouped_sums no time")
-    gs_launches += tpch_launches
-    gsk.update(hold_grouped_sums_agg(card, captured))
-    del captured
-    phase_mesh(card)
+    with tempfile.TemporaryDirectory() as work:
+        gs_launches, captured, tpch_launches, dist_rows = phase_agg(
+            card, profile, os.path.join(work, "tpch"))
+        check(gs_launches > 0, "the [agg] path launched grouped_sums no time")
+        gs_launches += tpch_launches
+        gsk.update(hold_grouped_sums_agg(card, captured))
+        del captured
+        mesh_ref = phase_mesh(card, work)
+        phase_multihost(card, work, mesh_ref, dist_rows)
     phase_suites(card)
     check_standalone()
 

@@ -8,9 +8,12 @@ CUDA kernels under ``csrc/``. Device choice lives in
 ``databend_tpu`` package and reads none of its files;
 ``tests/test_torch_standalone.py`` checks that every copied host module is
 still byte-identical to its reference, apart from a named list of modules
-the port owns. The one reference module not ported yet,
-``parallel/multihost.py`` (meshes that join several processes), has no
-file here; see ROADMAP.md.
+the port owns. Every reference module has its counterpart. A mesh spans
+query processes through ``parallel/multihost.join_cluster_mesh``: the nodes
+registered in the meta service join one ``torch.distributed`` process
+group (gloo on the CPU, NCCL when each process has cards of its own, gloo
+through host memory when processes share a card) and each process holds
+the mesh positions of its own devices.
 """
 
 from .version import __version__

@@ -47,6 +47,20 @@ def devices() -> list:
     return [dev]
 
 
+def identity() -> dict:
+    """What a query node registers about its devices (the meta registry's
+    ``NodeInfo.extra``): the device kind and, under cuda, the UUIDs of the
+    cards this process sees, comma-separated. The multi-process mesh's
+    backend rule reads them (``parallel.multihost.choose_backend``)."""
+    dev = device()
+    out = {"device": dev.type}
+    if dev.type == "cuda":
+        out["cards"] = ",".join(
+            str(torch.cuda.get_device_properties(i).uuid)
+            for i in range(torch.cuda.device_count()))
+    return out
+
+
 def to_device(array, dtype: torch.dtype = None,
               device: torch.device = None) -> torch.Tensor:
     """numpy (or array-like) -> tensor on ``device`` (a mesh position's

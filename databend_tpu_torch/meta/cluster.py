@@ -79,7 +79,7 @@ class ClusterDiscovery:
             address=address, version=__version__,
             cpu_count=os.cpu_count() or 1,
             device_count=len(backend.devices()),
-            cluster_id=cluster_id)
+            cluster_id=cluster_id, extra=backend.identity())
 
     def register(self, node: NodeInfo) -> None:
         """Idempotent upsert with a fresh lease (cluster.rs:620

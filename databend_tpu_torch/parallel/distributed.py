@@ -15,9 +15,11 @@ collectives over :class:`~.mesh.Mesh` (``mesh.py``):
 
 Corpus values are row-sharded on mesh axis ``shard`` and query batches
 optionally on ``dp``. Inputs and outputs are
-:class:`~.mesh.ShardedTensor`s; a result the reference replicates over the
-shard axis is computed once, on the first shard's device, and copied to
-each other device that holds it.
+:class:`~.mesh.ShardedTensor`s. Each process runs the per-shard phases of
+the positions it owns; a result the reference replicates over the shard
+axis is computed once per process from the gathered values (the same bits
+on every process), on its first position's device, and copied to each
+other device of it that holds it.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ import torch
 
 from ..ops.distance import pairwise_distance
 from ..ops.topk import chunked_topk_smallest, topk_smallest_lowest_index
-from .mesh import (DP_AXIS, SHARD_AXIS, P, ShardedTensor, all_gather,
-                   from_blocks, pmax, pmin, psum)
+from .mesh import (DP_AXIS, SHARD_AXIS, P, ShardedTensor, first_local,
+                   from_blocks, gather, per_shard, pmax, pmin, psum, unzip)
 
 
 def local_topk(q_l, x_l, k: int, metric: str, rows_per_shard: int,
@@ -81,13 +83,14 @@ def sharded_brute_force_topk(mesh, q: ShardedTensor, x: ShardedTensor,
     dp = mesh.shape[DP_AXIS]
     rows_v, rows_i = [], []
     for i in range(dp):
-        local = [local_topk(q.block(i, j), x.block(i, j), k, metric,
-                            rows_per_shard, j, chunk_rows, bf16, nv)
-                 for j in range(s)]
-        all_v = all_gather([v for v, _ in local])
-        all_i = all_gather([ids for _, ids in local])
-        # every shard's merge is the same: take shard 0's, replicated below
-        v, ids = merge_gathered(all_v[0], all_i[0], k)
+        local = per_shard(
+            lambda j, q_l, x_l: local_topk(q_l, x_l, k, metric,
+                                           rows_per_shard, j, chunk_rows,
+                                           bf16, nv),
+            q.shards(i), x.shards(i))
+        loc_v, loc_i = unzip(local, 2)
+        # every shard's merge is the same: one a process, replicated below
+        v, ids = merge_gathered(gather(loc_v), gather(loc_i), k)
         rows_v.append(v)
         rows_i.append(ids)
     shape = (q.shape[0], k)
@@ -102,17 +105,18 @@ def sharded_partial_agg(mesh, x: ShardedTensor, op: str = "sum"
     `psum`/`pmax`/`pmin` (the Merge aggregate exchange)."""
     parts = x.shards()
     if op == "sum":
-        out = psum([torch.sum(p, dim=0) for p in parts])
+        out = psum(per_shard(lambda _, p: torch.sum(p, dim=0), parts))
     elif op == "max":
-        out = pmax([torch.max(p, dim=0).values for p in parts])
+        out = pmax(per_shard(lambda _, p: torch.max(p, dim=0).values, parts))
     elif op == "min":
-        out = pmin([torch.min(p, dim=0).values for p in parts])
+        out = pmin(per_shard(lambda _, p: torch.min(p, dim=0).values, parts))
     elif op == "count":
-        out = psum([torch.tensor(p.shape[0], dtype=torch.int32,
-                                 device=p.device) for p in parts])
+        out = psum(per_shard(lambda _, p: torch.tensor(
+            p.shape[0], dtype=torch.int32, device=p.device), parts))
     else:
         raise ValueError(op)
-    return from_blocks(mesh, P(), tuple(out[0].shape), lambda i, j: out[0])
+    out = first_local(out)
+    return from_blocks(mesh, P(), tuple(out.shape), lambda i, j: out)
 
 
 def sharded_kmeans_step(mesh, x: ShardedTensor, centroids: ShardedTensor,
@@ -130,17 +134,18 @@ def sharded_kmeans_step(mesh, x: ShardedTensor, centroids: ShardedTensor,
     old centroid.
     """
     c = centroids.shape[0]
-    psums, pcnts = [], []
-    for j, x_l in enumerate(x.shards()):
-        cent = centroids.block(0, j)
+
+    def partial(j, x_l, cent):
         d = pairwise_distance(x_l, cent, metric)                 # [n_l, C]
         assign = torch.argmin(d, dim=1)                          # [n_l]
         onehot = torch.nn.functional.one_hot(assign, c).float()  # [n_l, C]
-        psums.append(onehot.T @ x_l.float())                     # [C, d]
-        pcnts.append(torch.sum(onehot, dim=0))                   # [C]
-    gsums = psum(psums)[0]
-    gcnt = psum(pcnts)[0]
-    cent = centroids.block(0, 0)
+        return onehot.T @ x_l.float(), torch.sum(onehot, dim=0)  # [C, d], [C]
+
+    psums, pcnts = unzip(per_shard(partial, x.shards(),
+                                   centroids.shards()), 2)
+    gsums = first_local(psum(psums))
+    gcnt = first_local(psum(pcnts))
+    cent = first_local(centroids.shards())
     new = torch.where(gcnt[:, None] > 0,
                       gsums / torch.clamp_min(gcnt[:, None], 1.0), cent)
     return (from_blocks(mesh, P(), tuple(new.shape), lambda i, j: new),

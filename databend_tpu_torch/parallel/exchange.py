@@ -20,9 +20,11 @@ Keys are turned into dense global int codes on the host (pipeline/keys
 factorization — the exchange hash function analog); the per-shard phases
 are fixed-shape torch programs with padding + validity masks where row
 counts vary. The reference's programs are ``shard_map`` bodies over a mesh
-whose ``dp`` rows repeat the same work; the port runs them on dp row 0.
-A result the reference all-gathers only so that a multi-process host can
-address it is read here from each shard directly. Accumulation is f32 and
+whose ``dp`` rows repeat the same work; the port runs them on dp row 0,
+each process on the positions it owns (``mesh.per_shard``). A result the
+reference all-gathers so that every host of a multi-process mesh can
+address it is gathered the same way before it is read (``_fetch``), so
+every process returns the same rows. Accumulation is f32 and
 ids int32, as in the reference (JAX without x64): 64-bit host inputs land
 as their 32-bit types, and the returned arrays have the reference's dtypes.
 Every host decision (capacities, the skew guard) is taken before the first
@@ -38,8 +40,9 @@ import torch
 
 from .. import backend
 from ..ops.topk import topk_largest_lowest_index
-from .mesh import (SHARD_AXIS, P, all_gather, all_to_all, from_blocks,
-                   pmax, pmin, psum, put_sharded)
+from .mesh import (SHARD_AXIS, P, all_shards, all_to_all, first_local,
+                   from_blocks, gather, per_shard, pmax, pmin, psum,
+                   put_sharded, unzip)
 
 # --------------------------------------------------------------- helpers
 
@@ -63,9 +66,11 @@ def shard_rows_padded(mesh, arr: np.ndarray, fill=0):
     return put_sharded(padded, mesh, spec), n
 
 
-def _fetch(parts: Sequence[torch.Tensor]) -> np.ndarray:
-    """Per-shard results concatenated along axis 0 on the host."""
-    return np.concatenate([backend.to_numpy(p) for p in parts])
+def _fetch(parts: Sequence) -> np.ndarray:
+    """Per-shard results concatenated along axis 0 on the host, the other
+    processes' shards gathered first (the reference's trailing
+    ``all_gather``)."""
+    return backend.to_numpy(gather(parts, tiled=True))
 
 
 _IDENTITY = {"count": 0.0, "sum": 0.0, "min": float("inf"),
@@ -124,7 +129,8 @@ def resize_width(mesh, x, n_valid: int, width: int, fill=0):
     is re-packed so that prefix occupies exactly ``width`` of the mesh's
     shard slots (the remaining shards hold only fill); widening re-spreads
     it back. The data never returns to host: each new block is cut from
-    the old blocks it overlaps, moved to its device.
+    the old blocks it overlaps, moved to its device (another process's
+    blocks are read with one gather first).
 
     Returns ``(y, rows_per_shard)``: ``y`` keeps the ``P(shard)``
     sharding so downstream stages just run at the new width (slots >=
@@ -137,7 +143,7 @@ def resize_width(mesh, x, n_valid: int, width: int, fill=0):
     if x.shape[0] % s:
         raise ValueError("input rows must already be mesh-divisible")
     cap = -(-max(int(n_valid), 1) // width)
-    old = x.shards()
+    old = all_shards(x.shards())
     rows_in = x.shape[0] // s
     fill = float(fill) if isinstance(fill, np.ndarray) else fill
 
@@ -191,13 +197,12 @@ def sharded_grouped_agg(mesh, gids: np.ndarray, values: np.ndarray,
     n_groups = int(n_groups)
     outs = []
     for j, op in enumerate(ops):
-        parts = []
-        for g, v in zip(g_parts, v_parts):
+        def partial(_, g, v, j=j, op=op):
             valid = g >= 0
             col = valid.to(v.dtype) if op == "count" else v[:, j]
-            parts.append(_segment(op, col, torch.where(valid, g, -1),
-                                  n_groups))
-        outs.append(_COLLECTIVE[op](parts)[0])
+            return _segment(op, col, torch.where(valid, g, -1), n_groups)
+        outs.append(first_local(
+            _COLLECTIVE[op](per_shard(partial, g_parts, v_parts))))
     return backend.to_numpy(torch.stack(outs, dim=1))
 
 
@@ -224,13 +229,15 @@ def sharded_topn(mesh, keys: np.ndarray, n: int, asc: bool = True
     fill = np.inf if asc else -np.inf
     keys_dev, _ = shard_rows_padded(mesh, keys.astype(np.float32), fill=fill)
     ids_dev, _ = shard_rows_padded(mesh, ids, fill=-1)
-    sel_parts, id_parts = [], []
-    for kl, il in zip(keys_dev.shards(), ids_dev.shards()):
+
+    def local(_, kl, il):
         vals, pos = _top_k(-kl if asc else kl, min(int(n), kl.shape[0]))
-        sel_parts.append(vals)
-        id_parts.append(il[pos])
-    all_v = all_gather(sel_parts)[0].reshape(-1)
-    all_i = all_gather(id_parts)[0].reshape(-1)
+        return vals, il[pos]
+
+    sel_parts, id_parts = unzip(per_shard(local, keys_dev.shards(),
+                                          ids_dev.shards()), 2)
+    all_v = gather(sel_parts).reshape(-1)
+    all_i = gather(id_parts).reshape(-1)
     _, out_pos = _top_k(all_v, min(int(n), all_v.shape[0]))
     out = backend.to_numpy(all_i[out_pos])
     return out[out >= 0][:n]
@@ -256,14 +263,15 @@ def broadcast_lookup_join(mesh, probe_codes: np.ndarray,
         mesh, probe_codes.astype(np.int64), fill=-1)
     bs = put_sharded(build_sorted, mesh, P())
     bp = put_sharded(order, mesh, P())
-    out = []
-    for j, probe in enumerate(probe_dev.shards()):
-        b_sorted, b_perm = bs.block(0, j), bp.block(0, j)
+
+    def local(_, probe, b_sorted, b_perm):
         pos = torch.searchsorted(b_sorted, probe)
         pos = torch.clamp(pos, 0, b_sorted.shape[0] - 1)
         hit = b_sorted[pos] == probe
-        out.append(torch.where(hit & (probe >= 0), b_perm[pos], -1))
-    return _fetch(out)[:n]
+        return torch.where(hit & (probe >= 0), b_perm[pos], -1)
+
+    return _fetch(per_shard(local, probe_dev.shards(), bs.shards(),
+                            bp.shards()))[:n]
 
 
 # ------------------------------------------------------- shuffle exchange
@@ -283,6 +291,17 @@ def _shuffle_send(dest: torch.Tensor, cols: Sequence[torch.Tensor], s: int,
     return [_scatter(slots, c[order], s * capacity, f)
             .reshape((s, capacity) + tuple(c.shape[1:]))
             for c, f in zip(cols, fills)]
+
+
+def _send_rows(dest_dev, vals_dev, s: int, capacity: int) -> List[list]:
+    """Each shard's send buffers of a row shuffle to ``dest`` (rows with
+    dest -1 dropped) and their validity buffers, as two per-shard
+    lists."""
+    def send(_, d, v):
+        return _shuffle_send(
+            d, [v, torch.ones(d.shape, dtype=torch.bool, device=d.device)],
+            s, capacity, d >= 0, (0.0, False))
+    return unzip(per_shard(send, dest_dev.shards(), vals_dev.shards()), 2)
 
 
 def _shuffle_capacity(dest_padded: np.ndarray, s: int) -> int:
@@ -323,15 +342,11 @@ def shuffle_by_key(mesh, key_codes: np.ndarray, values: np.ndarray
     capacity = _shuffle_capacity(pad_rows(dest, s, fill=-1)[0], s)
     dest_dev, n = shard_rows_padded(mesh, dest, fill=-1)
     vals_dev, _ = shard_rows_padded(mesh, cols)
-    bufs, valids = [], []
-    for d, v in zip(dest_dev.shards(), vals_dev.shards()):
-        buf, valid = _shuffle_send(
-            d, [v, torch.ones(d.shape, dtype=torch.bool, device=d.device)],
-            s, capacity, d >= 0, (0.0, False))
-        bufs.append(buf)
-        valids.append(valid)
-    recv = _fetch([r.reshape(-1, cols.shape[1]) for r in all_to_all(bufs)])
-    valid = _fetch([r.reshape(-1) for r in all_to_all(valids)])
+    bufs, valids = _send_rows(dest_dev, vals_dev, s, capacity)
+    recv = _fetch(per_shard(lambda _, r: r.reshape(-1, cols.shape[1]),
+                            all_to_all(bufs)))
+    valid = _fetch(per_shard(lambda _, r: r.reshape(-1),
+                             all_to_all(valids)))
     shard_of = np.repeat(np.arange(s), recv.shape[0] // s)
     keys_out = recv[valid, 0].astype(np.int64)
     vals_out = recv[valid, 1:]
@@ -384,13 +399,12 @@ def sharded_shuffle_grouped_agg(mesh, gids: np.ndarray, values: np.ndarray,
     gids_dev, _ = shard_rows_padded(mesh, gids32, fill=-1)
     vals_dev, _ = shard_rows_padded(
         mesh, np.ascontiguousarray(values, np.float32))
-    sent = [shuffle_agg_local(g, v, s, capacity)
-            for g, v in zip(gids_dev.shards(), vals_dev.shards())]
+    sent = per_shard(lambda _, g, v: shuffle_agg_local(g, v, s, capacity),
+                     gids_dev.shards(), vals_dev.shards())
     m = len(ops)
-    rgs = all_to_all([g for g, _ in sent])
-    rvs = all_to_all([v for _, v in sent])
-    outs = []
-    for rg, rv in zip(rgs, rvs):
+    rgs, rvs = (all_to_all(t) for t in unzip(sent, 2))
+
+    def reduce(_, rg, rv):
         rg = rg.reshape(-1)
         rv = rv.reshape(-1, m)
         valid = rg >= 0
@@ -400,8 +414,9 @@ def sharded_shuffle_grouped_agg(mesh, gids: np.ndarray, values: np.ndarray,
         for j, op in enumerate(ops):
             v = valid.to(rv.dtype) if op == "count" else rv[:, j]
             cols.append(_segment(op, v, g_local, gps + 1)[:gps])
-        outs.append(torch.stack(cols, dim=1))      # [gps, m]
-    out = _fetch(outs)                              # [s * gps, m]
+        return torch.stack(cols, dim=1)            # [gps, m]
+
+    out = _fetch(per_shard(reduce, rgs, rvs))      # [s * gps, m]
     gid_range = np.arange(int(n_groups), dtype=np.int64)
     perm = (gid_range % s) * gps + gid_range // s
     return out[perm]
@@ -463,22 +478,22 @@ class ShuffleJoin:
         capacity = _next_pow2(_shuffle_capacity(dest, s))
         codes_dev, _ = shard_rows_padded(self.mesh, codes, fill=-1)
         ids_dev, _ = shard_rows_padded(self.mesh, ids, fill=-1)
-        sent = []
-        for c, i in zip(codes_dev.shards(), ids_dev.shards()):
+        def send(_, c, i):
             d = torch.where(c >= 0, c % s, s)
-            sent.append(_shuffle_send(d, [c, i], s, capacity, c >= 0,
-                                      (-1, -1)))
-        rcs = all_to_all([c for c, _ in sent])
-        ris = all_to_all([i for _, i in sent])
-        ri_out, lo_out, cnt_out = [], [], []
-        for rc, ri, build_sorted in zip(rcs, ris, self.build_dev.shards()):
+            return _shuffle_send(d, [c, i], s, capacity, c >= 0, (-1, -1))
+
+        rcs, ris = (all_to_all(t) for t in unzip(per_shard(
+            send, codes_dev.shards(), ids_dev.shards()), 2))
+
+        def search(_, rc, ri, build_sorted):
             rc, ri = rc.reshape(-1), ri.reshape(-1)
             lo = torch.searchsorted(build_sorted, rc)
             hi = torch.searchsorted(build_sorted, rc, right=True)
-            ri_out.append(ri)
-            lo_out.append(lo.to(torch.int32))
-            cnt_out.append(torch.where(ri >= 0, hi - lo, 0).to(torch.int32))
-        ri, lo, cnt = _fetch(ri_out), _fetch(lo_out), _fetch(cnt_out)
+            return (ri, lo.to(torch.int32),
+                    torch.where(ri >= 0, hi - lo, 0).to(torch.int32))
+
+        ri, lo, cnt = (_fetch(t) for t in unzip(per_shard(
+            search, rcs, ris, self.build_dev.shards()), 3))
         rows_per_shard = ri.shape[0] // s
         shard_of = np.arange(ri.shape[0]) // rows_per_shard
         hit = cnt > 0
@@ -525,19 +540,14 @@ def range_partition_sort(mesh, keys: np.ndarray) -> np.ndarray:
     capacity = _next_pow2(_shuffle_capacity(pad_rows(dest, s, fill=-1)[0], s))
     dest_dev, _ = shard_rows_padded(mesh, dest, fill=-1)
     vals_dev, _ = shard_rows_padded(mesh, cols.astype(np.float32))
-    bufs, valids = [], []
-    for d, v in zip(dest_dev.shards(), vals_dev.shards()):
-        buf, valid = _shuffle_send(
-            d, [v, torch.ones(d.shape, dtype=torch.bool, device=d.device)],
-            s, capacity, d >= 0, (0.0, False))
-        bufs.append(buf)
-        valids.append(valid)
-    out, out_valid = [], []
-    for recv, rvalid in zip(all_to_all(bufs), all_to_all(valids)):
+    bufs, valids = _send_rows(dest_dev, vals_dev, s, capacity)
+
+    def local_sort(_, recv, rvalid):
         recv, rvalid = recv.reshape(-1, 2), rvalid.reshape(-1)
         key = torch.where(rvalid, recv[:, 0], float("inf"))
         o = torch.sort(key, stable=True).indices
-        out.append(recv[o])
-        out_valid.append(rvalid[o])
-    recv, valid = _fetch(out), _fetch(out_valid)
+        return recv[o], rvalid[o]
+
+    recv, valid = (_fetch(t) for t in unzip(per_shard(
+        local_sort, all_to_all(bufs), all_to_all(valids)), 2))
     return recv[valid, 1].astype(np.int64)

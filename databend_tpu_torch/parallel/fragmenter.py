@@ -46,7 +46,8 @@ import torch
 from .. import backend
 from .exchange import (_COLLECTIVE, _next_pow2, _segment, _skewed, _top_k,
                        pad_rows, shard_rows_padded, shuffle_agg_local)
-from .mesh import SHARD_AXIS, all_gather, all_to_all
+from .mesh import (SHARD_AXIS, all_to_all, first_local, gather, per_shard,
+                   unzip)
 
 # --------------------------------------------------------------------------
 # sort-key / HAVING expression evaluation over the merged [G, m] agg state
@@ -160,10 +161,11 @@ def _agg_topn_psum(g_parts, v_parts, g_pad: int, ops: Tuple[str, ...],
                    g_count: int):
     """Fused merge-exchange fragment: segment partials + psum + HAVING +
     top-n; only the L winners leave the device."""
-    parts = [_segment_merge(g, v, ops, g_pad)
-             for g, v in zip(g_parts, v_parts)]
-    merged = torch.stack([_COLLECTIVE[op]([p[:, j] for p in parts])[0]
-                          for j, op in enumerate(ops)], dim=1)
+    parts = per_shard(lambda _, g, v: _segment_merge(g, v, ops, g_pad),
+                      g_parts, v_parts)
+    merged = torch.stack([
+        first_local(_COLLECTIVE[op](per_shard(lambda _, p: p[:, j], parts)))
+        for j, op in enumerate(ops)], dim=1)
     gid_range = torch.arange(g_pad, dtype=torch.int32, device=merged.device)
     alive = gid_range < g_count
     if hcode is not None:
@@ -184,12 +186,11 @@ def _agg_topn_shuffle(g_parts, v_parts, capacity: int, gps: int,
     s = len(g_parts)
     m = len(ops)
     # ---- exchange 1: hash shuffle rows to their owner shard
-    sent = [shuffle_agg_local(g, v, s, capacity)
-            for g, v in zip(g_parts, v_parts)]
-    rgs = all_to_all([g for g, _ in sent])
-    rvs = all_to_all([v for _, v in sent])
-    cands = []
-    for my, (rg, rv) in enumerate(zip(rgs, rvs)):
+    sent = per_shard(lambda _, g, v: shuffle_agg_local(g, v, s, capacity),
+                     g_parts, v_parts)
+    rgs, rvs = (all_to_all(t) for t in unzip(sent, 2))
+
+    def candidates(my, rg, rv):
         rg = rg.reshape(-1)
         # ---- owner-local segment reduce (device-resident intermediate)
         g_local = torch.where(rg >= 0, torch.div(rg, s, rounding_mode="floor"),
@@ -202,12 +203,12 @@ def _agg_topn_shuffle(g_parts, v_parts, capacity: int, gps: int,
         if hcode is not None:
             hv, hk = _eval_pred(hcode, merged)
             alive = alive & hv & hk
-        cands.append(_select_topn(merged, gid_global, alive, key, asc,
-                                  nulls_first, min(limit, gps),
-                                  hcode is not None))
+        return _select_topn(merged, gid_global, alive, key, asc,
+                            nulls_first, min(limit, gps), hcode is not None)
+
+    cands = per_shard(candidates, rgs, rvs)
     # ---- exchange 2: ordered merge of the s*L candidates
-    a_gid, a_rows, a_alive, a_sel = (
-        all_gather([c[t] for c in cands])[0] for t in range(4))
+    a_gid, a_rows, a_alive, a_sel = (gather(c) for c in unzip(cands, 4))
     a_sel, a_gid, a_alive = (a.reshape(-1) for a in (a_sel, a_gid, a_alive))
     a_rows = a_rows.reshape(-1, m)
     k = min(limit, a_sel.shape[0])

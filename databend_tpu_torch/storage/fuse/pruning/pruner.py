@@ -352,13 +352,12 @@ class FusePruner:
         import numpy as np
         import torch
         from ....parallel import shard_rows, sharded_brute_force_topk
-        from ....parallel.mesh import (DP_AXIS, P, get_default_mesh,
-                                       make_mesh, put_sharded)
+        from ....parallel.mesh import DP_AXIS, P, get_default_mesh, put_sharded
         mesh = get_default_mesh()
         if mesh is None:
             return None
         if mesh.shape[DP_AXIS] > 1:
-            mesh = make_mesh(devices=list(mesh.devices.flat))
+            mesh = mesh.regrid(1)      # keeps each position's owner
         metric = info.func_name.replace("_distance", "")
         cols = []
         offsets = [0]

@@ -13,10 +13,12 @@ integer sums, counts and maxima, exact in the exchanges' f32.)
 import pytest
 
 from databend_tpu.service.session import SessionContext as JaxContext
+from databend_tpu.utils import tracing as jtracing
 
 from databend_tpu_torch import backend
 from databend_tpu_torch.parallel import exchange, fragmenter, mesh
 from databend_tpu_torch.service.session import SessionContext as TorchContext
+from databend_tpu_torch.utils import tracing as ttracing
 
 STATEMENTS = {
     "group_by": "SELECT a, sum(b), count(*), max(b) FROM t GROUP BY a "
@@ -36,6 +38,17 @@ def _torch_on_cpu():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv(backend.DEVICE_ENV, "cpu")
         yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drain_span_rings():
+    """Statements on either SessionContext record spans in their package's
+    process-wide ring; empty both after the module, so that a later test
+    file on this worker (tests/test_explain_profile.py) reads only its own
+    spans."""
+    yield
+    jtracing.RECORDER.drain()
+    ttracing.RECORDER.drain()
 
 
 def _load(ctx):

@@ -20,6 +20,7 @@ import databend_tpu.types as jtypes
 from databend_tpu.catalog.pushdown import VectorIndexInfo as JaxInfo
 from databend_tpu.service.session import SessionContext as JaxContext
 from databend_tpu.storage.fuse import table as jtable
+from databend_tpu.utils import tracing as jtracing
 
 import databend_tpu_torch.expression as texpr
 import databend_tpu_torch.types as ttypes
@@ -28,6 +29,7 @@ from databend_tpu_torch.catalog.pushdown import VectorIndexInfo as TorchInfo
 from databend_tpu_torch.index.hnsw import search as tsearch
 from databend_tpu_torch.service.session import SessionContext as TorchContext
 from databend_tpu_torch.storage.fuse import table as ttable
+from databend_tpu_torch.utils import tracing as ttracing
 
 N, D, RPB = 2500, 16, 1024
 
@@ -37,6 +39,17 @@ def _torch_on_cpu():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv(backend.DEVICE_ENV, "cpu")
         yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drain_span_rings():
+    """Statements on either SessionContext record spans in their package's
+    process-wide ring; empty both after the module, so that a later test
+    file on this worker (tests/test_explain_profile.py) reads only its own
+    spans."""
+    yield
+    jtracing.RECORDER.drain()
+    ttracing.RECORDER.drain()
 
 
 def _data():

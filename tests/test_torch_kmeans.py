@@ -15,12 +15,14 @@ import databend_tpu.expression as jexpr
 import databend_tpu.types as jtypes
 from databend_tpu.index import kmeans as jkm
 from databend_tpu.service.session import SessionContext as JaxContext
+from databend_tpu.utils import tracing as jtracing
 
 import databend_tpu_torch.expression as texpr
 import databend_tpu_torch.types as ttypes
 from databend_tpu_torch import backend
 from databend_tpu_torch.index import kmeans as tkm
 from databend_tpu_torch.service.session import SessionContext as TorchContext
+from databend_tpu_torch.utils import tracing as ttracing
 
 N, D, K, SEED = 4096, 32, 16, 3
 
@@ -28,6 +30,17 @@ N, D, K, SEED = 4096, 32, 16, 3
 @pytest.fixture(autouse=True)
 def _torch_on_cpu(monkeypatch):
     monkeypatch.setenv(backend.DEVICE_ENV, "cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drain_span_rings():
+    """Statements on either SessionContext record spans in their package's
+    process-wide ring; empty both after the module, so that a later test
+    file on this worker (tests/test_explain_profile.py) reads only its own
+    spans."""
+    yield
+    jtracing.RECORDER.drain()
+    ttracing.RECORDER.drain()
 
 
 def _blobs(n=N, d=D, k=K, seed=SEED, blobs=None):

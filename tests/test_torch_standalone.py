@@ -37,12 +37,17 @@ PORT_OWN = {
     "index/kmeans.py": "Lloyd's iteration on torch",
     "index/inverted/device.py": "BM25 programs on torch, the impact scorer "
                                 "through the CUDA kernel",
-    "parallel/mesh.py": "a grid of torch devices, sharded values as one "
-                        "tensor per position, collectives over shard lists",
+    "parallel/mesh.py": "a grid of torch devices with an owner a "
+                        "position, sharded values as one tensor per own "
+                        "position, collectives over shard lists that "
+                        "cross processes over torch.distributed",
     "parallel/distributed.py": "sharded top-k / aggregate / k-means as "
                                "per-shard phases and collectives on torch",
     "parallel/exchange.py": "the exchanges as per-shard torch phases; host "
                             "decisions before the first upload",
+    "parallel/multihost.py": "the registry's nodes join a torch.distributed "
+                             "process group by a stated backend rule; the "
+                             "mesh records each position's owner",
     "parallel/fragmenter.py": "the fused fragment's programs on torch; the "
                               "join fusion's host half returns its device "
                               "half, whose errors propagate",
@@ -73,7 +78,8 @@ PORT_OWN = {
     "service/system_tables.py": "build_options, clusters and credits "
                                 "from torch",
     "service/merge.py": "ScanState from the port's binder",
-    "meta/cluster.py": "local_node counts the port's devices",
+    "meta/cluster.py": "local_node counts the port's devices and "
+                       "registers their kind and card ids",
     "utils/perf.py": "stack paths compress at databend_tpu_torch/",
 }
 
