@@ -42,12 +42,17 @@ Phases (any failure exits non-zero and prints no result line):
      an odd n_pad (unaligned rows);
      impact_bm25_topk, the selecting entry point of the same source (ids
      equal and values bit-equal to its plain version at k = 1, 10 and its
-     largest k; one read of the layout, the query operands and the
-     distance term plus the [b, k] result at 3.35 TB/s, or the same
-     compare-selects; beside it the pair it replaces, impact_bm25_scores
-     and the tie-rule top-k): at the same nine shapes, the serving shape
-     300 times over, a block where every doc has the same terms, and AND
-     queries with groups no doc matches;
+     largest k; its bound the function's work, whatever design runs it:
+     one read of the layout (sat only at the slots some query term asks
+     for, as for the scores), the query operands and the distance term plus
+     the [b, k] result at 3.35 TB/s, or one f32 product and sum per
+     (query, doc, real query term) at 67 TFLOP/s and one key compare per
+     (query, doc) at the int32 rate; beside it the first design's count, one
+     compare-select per (real doc slot, real query term), the pair it
+     replaces, impact_bm25_scores and the tie-rule top-k, and its plan):
+     at the same nine shapes, the serving shape 300 times over, a block
+     where every doc has the same terms, and AND queries with groups no
+     doc matches;
      grouped_sums (bit-equal, beside one index_add_ into int32, the library
      call; one read of ids and value rows and one write of the sums at
      3.35 TB/s; each shape's placement and cluster size printed beside its
@@ -513,30 +518,29 @@ def impact_operands(g, n_pad, n_docs, slots, b, m, and_mode, dim=0,
 
 
 def impact_bound(ops, dist, out_bytes=None):
-    """(ms, "bytes" or "operations"): one read of the layout, the query
+    """(ms, "bytes" or "operations"): the least time of the function's
+    work, whatever design runs it: one read of the layout, the query
     operands and the distance term plus one write of the output at the
     memory rate, or the operations of this run's data at their peak,
-    whichever is larger. impact_bm25_scores (``out_bytes`` None: the
-    [b, n_pad] f32 scores): of ``sat`` only the slots whose term some query
+    whichever is larger. Of ``sat`` only the slots whose term some query
     asks for, what this data needs; one f32 product and sum per (query,
-    doc, real query term). impact_bm25_topk (its [b, k] result in
-    ``out_bytes``): all of ``sat``; one compare-select per (real doc slot,
-    real query term) at the int32 instruction rate, what its scoring
-    does."""
+    doc, real query term). The output is impact_bm25_scores' [b, n_pad]
+    f32 scores (``out_bytes`` None) or impact_bm25_topk's [b, k] result
+    (``out_bytes``), which adds one u64 key compare per (query, doc) at
+    the int32 instruction rate."""
     term_ids, sat, qpack = ops[:3]
     n_pad = term_ids.shape[0]
     terms = qpack[..., 0]
     real_terms = int((terms >= 0).sum())
     nbytes = sum(t.numel() * t.element_size() for t in ops) \
         + (dist.numel() * 4 if dist is not None else 0)
+    nbytes -= sat.numel() * 4 - 4 * int(
+        torch.isin(term_ids, terms[terms >= 0]).sum())
+    t_ops = 2 * real_terms * n_pad / F32_FLOPS_PER_S * 1e3
     if out_bytes is None:
         out_bytes = qpack.shape[0] * n_pad * 4
-        nbytes -= sat.numel() * 4 - 4 * int(
-            torch.isin(term_ids, terms[terms >= 0]).sum())
-        t_ops = 2 * real_terms * n_pad / F32_FLOPS_PER_S * 1e3
     else:
-        real_slots = int((term_ids >= 0).sum())
-        t_ops = real_slots * real_terms / INT32_OPS_PER_S * 1e3
+        t_ops += qpack.shape[0] * n_pad / INT32_OPS_PER_S * 1e3
     nbytes += out_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -593,6 +597,15 @@ def hold_impact_kernel(card, what, ops, dist, w_s=1.0, w_d=0.0, repeats=0):
     return err, ms, plain_ms, bound_ms, bound_by
 
 
+def compare_select_ms(ops):
+    """The count of the first selecting design's own work, for the record:
+    one compare-select per (real doc slot, real query term) at the int32
+    instruction rate (what that design did, not what the function needs)."""
+    term_ids, _, qpack = ops[:3]
+    return int((term_ids >= 0).sum()) * int((qpack[..., 0] >= 0).sum()) \
+        / INT32_OPS_PER_S * 1e3
+
+
 def same_bits(a, b) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
         a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
@@ -607,7 +620,8 @@ def hold_impact_topk(card, what, ops, dist, w_s=1.0, w_d=0.0, repeats=0,
     launches must give the first answer's bits.
     Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by, pair_ms)."""
     from databend_tpu_torch.ops.impact_bm25 import (
-        MAX_K, _impact_bm25_topk_plain, impact_bm25_scores, impact_bm25_topk)
+        MAX_K, _impact_bm25_topk_plain, _topk_plan, impact_bm25_scores,
+        impact_bm25_topk)
     from databend_tpu_torch.ops.topk import topk_largest_lowest_index
     b = ops[2].shape[0]
     for k in (1, K, MAX_K):
@@ -642,14 +656,22 @@ def hold_impact_topk(card, what, ops, dist, w_s=1.0, w_d=0.0, repeats=0,
     pair_ms = cuda_ms(lambda: topk_largest_lowest_index(
         impact_bm25_scores(*ops, dist=dist, w_s=w_s, w_d=w_d), K))
     bound_ms, bound_by = impact_bound(ops, dist, out_bytes=b * K * 12)
+    p = _topk_plan(ops[0].shape[0], b, ops[2].shape[1], K,
+                   torch.cuda.get_device_properties(0).multi_processor_count)
     rep = f", {repeats} repeats equal" if repeats else ""
     print(f"[kernel] impact_bm25_topk {what}: ids and values bit-equal to the "
           f"plain version at k = 1, {K}, {MAX_K}{rep} ({100 * matched:.1f}% "
-          f"of the top {K} matched); k = {K}: kernel {ms:.4f} ms on the card "
+          f"of the top {K} matched); k = {K}: plan {p.units} unit(s) of "
+          f"{p.queries} queries, {p.chunks} chunk(s) of {p.terms} terms, "
+          f"{p.qsplit} block(s) of {p.group} queries a unit, {p.ways} way(s) "
+          f"a query, strips of {p.subs} x 32 docs, {p.blocks} blocks a unit "
+          f"and group; kernel {ms:.4f} ms on the card "
           f"({call_ms:.4f} ms a call of the wrapper), plain "
           f"{plain_ms:.4f} ms, the scores kernel + tie-rule top-k {pair_ms:.4f}"
           f" ms, bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.0f}"
-          f"% reached) [{card}]")
+          f"% reached; the first design's compare-select count "
+          f"{compare_select_ms(ops):.4f}"
+          f" ms) [{card}]")
     return 0.0, ms, plain_ms, bound_ms, bound_by, pair_ms
 
 

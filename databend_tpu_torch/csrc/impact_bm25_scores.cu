@@ -93,64 +93,69 @@
 // instructions per (query, doc) and the latency of the table's loads hold
 // the rest.
 //
-// impact_bm25_topk, a first right version of a selecting kernel:
-//  * Scoring (score_doc). For L = 8, 16, 32 a lane keeps its doc's term ids
-//    and saturations in registers (16-byte loads) and compares each query
-//    term with every slot (compare + select pairs). For longer rows the block
-//    copies 32 rows into shared memory, transposed and padded to 33 words a
-//    slot so that neither the copy nor the lanes' reads collide on a bank:
-//    264 bytes a slot, 135 KB at L = 512. There the slot loop reads term ids
-//    only and the one matching saturation after it, and stops at the last
-//    slot that holds a real term in any doc of the 32. The packed entries
-//    are read through the read-only cache, every lane of a warp the same
-//    address. Its bytes are one read of term_ids and sat (and of dist when
-//    fused) and the [b, k] result: 17 MB, 0.005 ms, at the shape above;
-//    fused, 151 MB. Its operations are 0.8 G compare-selects, 0.012 ms:
-//    operations bind the text call, bytes the fused one. It reaches 3% of
-//    that bound (PERF.md): the scoring's bookkeeping and the selection hold
-//    it.
+// Bound of impact_bm25_topk, from the function's work, whatever design
+// runs it (chip_smoke.impact_bound, the same count as the scores kernel's
+// but for the output): its bytes are one read of term_ids, of the
+// saturations the query terms ask for (and of dist when fused) and the
+// [b, k] result; its operations one f32 product and one sum per (query,
+// doc, real query term) and one key compare per (query, doc). At the
+// serving shape the operations bind; fused, and at L = 512, the reads do.
+// (The first design was counted by its own work, one compare-select per
+// (real doc slot, real query term); chip_smoke.py prints that count
+// beside.)
+//
+// Design of impact_bm25_topk (topk_kernel): the scores kernel's walk over
+// the strips, its table and its per-item scoring (walk_strips, score_item;
+// one copy of that code serves both entry points), and the selection where
+// the scores are, in registers.
+//  * Slots. A block's 64 quarter-warps each own at most one slot: a query
+//    of the unit and a way, one of the `ways` residues of the sub-strips of
+//    a strip that the slot scores (sub = way, way + ways, ..). A block takes
+//    `group` of the unit's queries (group * ways <= 64); a unit's queries
+//    take qsplit = ceil(gq / group) blocks, each building the strip's table
+//    itself: the build is one lookup a slot, cheap beside scoring the
+//    queries, and a slot's buffer must sit beside the table. Small batches
+//    take more ways (b = 8: 8 ways; b = 1: 64), so that every quarter works.
 //  * One ordering key. Each (query, doc) gets the u64 key
 //    (ord(score) << 32) | (0xffffffff - doc), ord the order-preserving map of
 //    f32 bits to u32. Keys are distinct, and the k largest keys are exactly
-//    lax.top_k's answer, ties and the -inf fill included: no second pass
-//    over tied values.
-//  * Phase one (topk_strip_kernel). A block walks a sub-strip of
-//    32 x `chunks` docs in ascending order, 32 docs (one per lane) at a
-//    time, for up to 4 queries a warp (a block's queries dealt to its warps
-//    in turn, so that a small batch still keeps every warp busy); blocks of
-//    neighbouring ids share the sub-strip, so its rows come from L1 or L2
-//    after the first warp. A doc that ties the running k-th score comes
-//    later than it and so has a smaller key: one compare against the
-//    query's threshold rejects it. BM25 over short texts ties by the
-//    thousand, and after the first chunks almost every doc ends there.
-//  * Each query of a warp has a buffer of 32 * R keys (R = 2, 4, 8 for k
-//    up to 32, 96, 128: at least k + 32) in shared memory, private to the
-//    warp: the lanes above the threshold append with __ballot_sync +
-//    __popc. When a ballot would overflow the buffer, the warp cuts it to
-//    its k largest keys (a bitonic sort of the buffer in registers, R keys
-//    a lane, partners trading through shuffles), and the threshold rises to
-//    the k-th key. At the end of its sub-strip the warp cuts once more and
-//    writes the sorted top k (0 keys where the sub-strip held fewer docs)
-//    to part [b, nsub, k]. No atomics.
-//  * A warp takes its queries in turn over each chunk's row (held in
-//    registers), each scored and offered before the next. Their thresholds
-//    and counts live in shared memory and the loop is not unrolled: the
-//    kernel holds one copy of the scoring and of the selection. (Unrolled,
-//    with a copy of the sorting network for each query, the kernel was
-//    several times larger and no faster; appending through shared-memory
-//    atomics between cuts, with no warp-wide operation in the hot loop,
-//    was no faster either: PERF.md.)
-//  * Phase two (topk_merge_kernel), a block per query: its 8 warps each scan
-//    a share of the query's nsub * k keys with the same buffer and
-//    threshold, warp 0 merges the others' top k, and unpacks the sorted
-//    keys to (vals, ids).
-//  * Sub-strips are 32 x 32 docs, halved (to 4 x 32 at least) while fewer
-//    than TARGET_WARPS warps would work: small batches spread over more
-//    sub-strips, and phase two reads more keys.
+//    lax.top_k's answer, ties and the -inf fill included. Docs past n_pad get
+//    key 0, below every real key.
+//  * Selection. A lane builds its four docs' keys in registers once the
+//    query's last chunk is scored and compares them with its slot's
+//    threshold, held in a register (the quarter's lanes hold the same one);
+//    one warp vote skips the rest when no lane of the warp passes. The keys
+//    are distinct, so the compare is right in any doc order: the k-th key of
+//    a subset is never above the k-th of the whole. A doc that ties the k-th
+//    score and comes later has a smaller key and ends there; BM25 over short
+//    texts ties by the thousand. A survivor is appended to the slot's
+//    buffer of 32 * R keys in shared memory (R = 2, 4, 8 for k up to 32,
+//    96, 128: at least k + 32) by a shared atomicAdd on the slot's count,
+//    with no warp-wide step. Then the warp votes once: a buffer that could
+//    not take another item's 32 keys is cut by the whole warp to its k
+//    largest (cut<R>: a bitonic sort in registers), and the slot's threshold
+//    rises to the k-th key. The slot also raises the query's threshold in
+//    device memory (atomicMax) and reads it once an item: a block's k-th
+//    key is never above the query's, so no key below any block's k-th is
+//    among the k largest, and the slots stop taking survivors sooner.
+//  * At the end of its strips a block cuts every slot, merges the slots of
+//    each query (a warp a query: the first slot takes the others' keys
+//    through offer<R>) and writes the query's top k (0 keys where it saw
+//    fewer docs) to part [b, blocks, k]. Phase two (topk_merge_kernel), a
+//    block per query, merges the `blocks` partial lists and unpacks the
+//    sorted keys to (vals, ids).
+//  * One block an SM, with up to 220 KB of shared memory: the scores
+//    kernel's table and staging for the unit at the plan's strip width,
+//    then the slots' buffers (at b = 128, m = 4 a block takes 64 queries,
+//    qsplit 2). At two blocks an SM (64 registers a thread) the kernel
+//    spills. The plan (units, group, strips, ways, blocks) is
+//    ops/impact_bm25.py:_topk_plan, pure Python; topk_plan_ok checks it.
 //  * k is at most MAX_K = 128 (the wrapper sends larger k to
-//    impact_bm25_scores and the tie-rule top-k). At k = 128 and 8 warps a
-//    block's buffers take 64 KB, which beside the 135 KB of rows at
-//    L = 512 still fits the SM.
+//    impact_bm25_scores and the tie-rule top-k).
+// At the serving shape it is 2.3x faster than the first design and 9.6x
+// the pair it replaced, far from its bound (PERF.md): the survivors'
+// appends and cuts, then the per-item work (scoring, keys, vote) at one
+// block an SM, hold it.
 //
 // Each kernel variant is opted in to the shared memory it may need once a
 // device (allow_smem). Times and their bounds: chip_smoke.py and
@@ -166,143 +171,24 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 8;               // warps of a topk_merge_kernel block
 constexpr int THREADS = WARPS * 32;
-constexpr int DOCS = 32;      // docs of a strip, one per lane
-constexpr int ROW_PAD = 33;   // words per slot of the transposed rows
+constexpr int DOCS = 32;               // docs of a sub-strip
 constexpr int MAX_L = 512;
 constexpr int UNIT_ENTRIES = 512;      // (query, term) entries of a unit
-constexpr int SW = 16;                 // warps of a scores block
+constexpr int SW = 16;                 // warps of a scores or topk block
 constexpr int S_THREADS = SW * 32;
 constexpr int S_BLOCKS = 2;            // scores blocks an SM holds
-constexpr int MAX_SUBS = 8;            // 32-doc sub-strips of a strip
+constexpr int MAX_SUBS = 8;            // sub-strips a strip widens to
 constexpr int SCORES_SMEM = 112 * 1024;   // a block's budget: two an SM
 constexpr int QUAD = 4;                // items a warp scores at once
 constexpr int TPAD = 4;                // a table row: 32 * subs + TPAD words
 constexpr int MAX_DEVICES = 64;
-constexpr int QPW = 4;        // queries a warp of topk_strip_kernel owns
 constexpr int MAX_K = 128;
-constexpr int MAX_CHUNKS = 32;         // 32-doc chunks of a sub-strip
-constexpr int MIN_CHUNKS = 4;
-constexpr int TARGET_WARPS = 2048;     // phase-one warps wanted
+constexpr int SLOTS = QUAD * SW;       // selection slots of a topk block
+constexpr int TOPK_MAX_SUBS = 64;      // sub-strips of a topk plan's strip
+constexpr int TOPK_SMEM = 220 * 1024;  // a topk block's budget: one an SM
 constexpr unsigned FULL = 0xffffffffu;
-
-// A lane's doc row: LR > 0 slots in registers. LR == 0: the rows of the 32
-// docs live in shared memory as s_ids[slot * ROW_PAD + lane], s_sat likewise.
-template <int LR>
-struct Row {
-  static constexpr int NR = LR > 0 ? LR : 1;
-  int ids[NR];
-  float st[NR];
-};
-
-template <int LR>
-__device__ __forceinline__ void load_row(const int* __restrict__ term_ids,
-                                         const float* __restrict__ sat,
-                                         long long d, bool live, Row<LR>& r) {
-  const int4* pi = reinterpret_cast<const int4*>(term_ids + d * LR);
-  const float4* ps = reinterpret_cast<const float4*>(sat + d * LR);
-#pragma unroll
-  for (int v = 0; v < LR / 4; ++v) {
-    int4 a = make_int4(-2, -2, -2, -2);
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (live) {
-      a = __ldg(pi + v);
-      f = __ldg(ps + v);
-    }
-    r.ids[4 * v + 0] = a.x; r.ids[4 * v + 1] = a.y;
-    r.ids[4 * v + 2] = a.z; r.ids[4 * v + 3] = a.w;
-    r.st[4 * v + 0] = f.x; r.st[4 * v + 1] = f.y;
-    r.st[4 * v + 2] = f.z; r.st[4 * v + 3] = f.w;
-  }
-}
-
-// Long rows: the block copies the rows of docs doc0 .. doc0 + 31 into shared
-// memory (`rows`: L * ROW_PAD ids, then as many saturations) and returns the
-// slots to scan: every real term of those docs lies below it. Every thread
-// of the block calls it; it ends with the rows visible to all.
-__device__ __forceinline__ int stage_rows(unsigned char* rows,
-                                          const int* __restrict__ term_ids,
-                                          const float* __restrict__ sat,
-                                          long long doc0, int n_pad, int L) {
-  __shared__ int s_used;
-  int* w_ids = reinterpret_cast<int*>(rows);
-  float* w_sat = reinterpret_cast<float*>(rows) +
-                 static_cast<size_t>(L) * ROW_PAD;
-  const long long base = doc0 * L;
-  int used = 0;
-  __syncthreads();            // the previous rows and s_used are read
-  if (threadIdx.x == 0) s_used = 0;
-  for (int i = threadIdx.x; i < DOCS * L; i += blockDim.x) {
-    const int doc = i / L;
-    const int slot = i - doc * L;
-    const bool in = doc0 + doc < n_pad;
-    const int id = in ? __ldg(term_ids + base + i) : -2;
-    w_ids[slot * ROW_PAD + doc] = id;
-    w_sat[slot * ROW_PAD + doc] = in ? __ldg(sat + base + i) : 0.f;
-    if (id >= 0 && slot >= used) used = slot + 1;
-  }
-  __syncthreads();
-  used = __reduce_max_sync(FULL, used);
-  if ((threadIdx.x & 31) == 0) atomicMax(&s_used, used);
-  __syncthreads();
-  return (s_used + 7) & ~7;
-}
-
-// The score of this lane's doc for the query whose packed terms start at
-// `qp`, and the number of its term groups that matched.
-template <int LR>
-__device__ __forceinline__ float score_doc(const int4* __restrict__ qp, int m,
-                                           const Row<LR>& r,
-                                           const unsigned char* rows, int L,
-                                           int used, int lane, int& groups) {
-  const int* s_ids = reinterpret_cast<const int*>(rows);
-  const float* s_sat = reinterpret_cast<const float*>(rows) +
-                       static_cast<size_t>(L) * ROW_PAD;
-  float score = 0.f;
-  groups = 0;
-  int cur = INT_MIN;          // no group id: the first term opens a run
-  bool run_hit = false;
-#pragma unroll 2
-  for (int j = 0; j < m; ++j) {
-    const int4 e = __ldg(qp + j);       // {term, idf, group, unused}
-    const int t = e.x;
-    if (t < 0) break;         // pad terms trail the real ones
-    float v = __int_as_float(0x7fc00000);   // NaN: no slot matched yet
-    if constexpr (LR > 0) {
-#pragma unroll
-      for (int s = 0; s < LR; ++s) v = r.ids[s] == t ? r.st[s] : v;
-    } else {
-      int at = -1;            // the matching slot: ids only, then one sat
-#pragma unroll 8
-      for (int s = 0; s < used; ++s)
-        at = s_ids[s * ROW_PAD + lane] == t ? s : at;
-      if (at >= 0) v = s_sat[at * ROW_PAD + lane];
-    }
-    const bool hit = v == v;
-    score = __fadd_rn(score, __fmul_rn(__int_as_float(e.y), hit ? v : 0.f));
-    if (e.z != cur) {         // uniform across the warp
-      groups += run_hit ? 1 : 0;
-      run_hit = false;
-      cur = e.z;
-    }
-    run_hit |= hit;
-  }
-  groups += run_hit ? 1 : 0;
-  return score;
-}
-
-// The ranked value of (q, d): the score, or the fused combination, masked to
-// -inf below `need` matched groups (last: the weights may be negative, -inf
-// is never multiplied).
-__device__ __forceinline__ float ranked(float score, int groups, float need,
-                                        const float* __restrict__ dist,
-                                        size_t at, float w_s, float w_d) {
-  float val = score;
-  if (dist != nullptr)
-    val = __fadd_rn(__fmul_rn(w_s, score), __fmul_rn(w_d, __ldg(dist + at)));
-  return static_cast<float>(groups) >= need ? val : __int_as_float(0xff800000);
-}
 
 // ---------------------------------------------------------------- scores
 // Shared memory of scores_kernel for a unit of gq queries and mc terms a
@@ -319,6 +205,14 @@ __host__ __device__ constexpr size_t scores_smem(int gq, int mc, int subs) {
   return scores_table_bytes(gq * mc, subs) +
          static_cast<size_t>(gq) * mc * (sizeof(int2) + sizeof(int)) +
          static_cast<size_t>(gq) * (sizeof(float) + 2 * sizeof(int));
+}
+
+// Shared memory of topk_kernel: the scores kernel's, rounded to 16 bytes,
+// then `slots` buffers of 32 * r keys and a count each.
+__host__ __device__ constexpr size_t topk_smem(int gq, int mc, int subs,
+                                               int slots, int r) {
+  return ((scores_smem(gq, mc, subs) + 15) & ~static_cast<size_t>(15)) +
+         static_cast<size_t>(slots) * (32 * r * sizeof(u64) + sizeof(int));
 }
 
 // Writes the saturations of one 16-byte group of doc slots (of local doc
@@ -352,17 +246,37 @@ __device__ __forceinline__ void fill_group(float* tab, int ts, const int* voc,
   if (lo[3] >= 0) col[lo[3] * ts] = f.w;
 }
 
-// Block (x, y, z) walks the strips x, x + gridDim.x, .. for unit y (queries
-// y * gq ..). The unit's (query, sub-strip) items go four to a warp, a
-// quarter-warp an item and four docs a lane; the block takes the quads
-// z * SW + warp, stepping by gridDim.z * SW. See the top of the file.
-__global__ void __launch_bounds__(S_THREADS, S_BLOCKS)
-scores_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
-              const int4* __restrict__ qpack, const float* __restrict__ need,
-              const float* __restrict__ dist, float w_s, float w_d,
-              float* __restrict__ out, int n_pad, int L, int b, int m, int gq,
-              int mc, int subs0, int vec) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// What walk_strips hands the work of a strip and chunk: the unit's staged
+// entries (mc a query: {byte offset of the term's table row | new-group
+// bit, idf}), each query's need, real terms in the chunk and whether a
+// group has several terms; the table (rows of ts words, `subs` sub-strips
+// of the strip); the strip's first doc; the chunk, and whether it is the
+// queries' last.
+struct Walk {
+  const int2* ent;
+  const float* need;
+  const int* cnt;
+  const int* multi;
+  const float* tab;
+  int ts, subs;
+  long long doc0;
+  int c, chunks;
+  bool last;
+};
+
+// The walk over the strips shared by scores_kernel and topk_kernel. Block
+// (x, y, z) walks the strips x, x + gridDim.x, .. for unit y (queries
+// y * gq ..): per strip and chunk it fills the table from the strip's rows
+// (FILL row loads in flight a thread), calls body(walk) with every thread
+// of the block, and clears the table. The strip's width is fixed before
+// the walk: a width the chunk loop could change kept the scores kernel's
+// loop bounds out of uniform registers (PERF.md). See the top of the file.
+template <int FILL, typename Body>
+__device__ __forceinline__ void walk_strips(
+    unsigned char* smem, const int* __restrict__ term_ids,
+    const float* __restrict__ sat, const int4* __restrict__ qpack,
+    const float* __restrict__ need, int n_pad, int L, int b, int m, int gq,
+    int mc, int subs0, Body&& body) {
   __shared__ int s_nv[2];     // a stage's vocabulary size, by its parity
   const int cap = gq * mc;
   // the table's words: (cap + 1) rows of the plan's strips; a vocabulary
@@ -377,15 +291,10 @@ scores_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
   const int4* ids4 = reinterpret_cast<const int4*>(term_ids);
   const float4* sat4 = reinterpret_cast<const float4*>(sat);
   const float nan = __int_as_float(0x7fc00000);
-  const float ninf = __int_as_float(0xff800000);
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int quarter = lane >> 3;          // the lane's item of the quad
-  const int col = (lane & 7) * 4;         // its first doc in the sub-strip
   const int q0 = blockIdx.y * gq;
   const int nq = b - q0 < gq ? b - q0 : gq;
   const int chunks = (m + mc - 1) / mc;
-  const int qstep = gridDim.z * SW;
 
   for (int i = threadIdx.x; i < words; i += S_THREADS) tab[i] = nan;
   for (int i = threadIdx.x; i < nq; i += S_THREADS) {
@@ -396,11 +305,10 @@ scores_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
   __syncthreads();
 
   int stages = 0;
-  int nv = 0;
-  int subs = subs0, ts = DOCS * subs0 + TPAD, sdocs = DOCS * subs0;  // subs0: a power of two
-  // Stage the unit's entries of chunk c, its vocabulary and each query's
-  // real terms in the chunk; then the layout: nv rows of ts words, row nv
-  // the NaN row of pads (and of entries outside the contract).
+  // Stage the unit's entries of a chunk, its vocabulary and each query's
+  // real terms in the chunk; returns the vocabulary's size nv. An entry
+  // holds its row (cap: outside the contract) and the new-group flag
+  // until place() turns the row into a byte offset.
   auto stage = [&](int j0, int nj) {
     int mine = 0;
     for (int i = threadIdx.x; i < nq * mc; i += S_THREADS) {
@@ -433,23 +341,33 @@ scores_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
     mine = __reduce_max_sync(FULL, mine);
     if (lane == 0) atomicMax(&s_nv[stages & 1], mine);
     __syncthreads();
-    nv = s_nv[stages & 1];
+    const int found = s_nv[stages & 1];
     if (threadIdx.x == 0) s_nv[(stages + 1) & 1] = 0;
     ++stages;
-    if (chunks == 1) {         // the widest power of two that fits
-      const int fit = (words / (nv + 1) - TPAD) / DOCS;
-      while (subs < MAX_SUBS && 2 * subs <= fit) subs *= 2;
-      ts = DOCS * subs + TPAD;
-      sdocs = DOCS * subs;
-    }
-    // the entries' byte offsets of their rows, bit 0 the new-group flag;
-    // read after the next barrier
+    return found;
+  };
+  // The layout: nv rows of ts words, row nv the NaN row of pads (and of
+  // entries outside the contract); the entries' byte offsets of their rows,
+  // bit 0 the new-group flag, read after the next barrier.
+  auto place = [&](int nv, int ts) {
     for (int i = threadIdx.x; i < nq * mc; i += S_THREADS) {
       const int v = ent[i].x >> 1;
       ent[i].x = (v == cap ? nv : v) * ts * static_cast<int>(sizeof(float)) |
                  (ent[i].x & 1);
     }
   };
+  // One chunk: its vocabulary staged once, strips as wide as its nv + 1
+  // rows fit (the widest power of two, subs0 one); several: the plan's
+  // strips, each chunk staged again per strip. The strip is fixed here,
+  // before the walk.
+  int nv = chunks == 1 ? stage(0, m) : 0;
+  int subs = subs0;
+  if (chunks == 1) {
+    const int fit = (words / (nv + 1) - TPAD) / DOCS;
+    while (subs < MAX_SUBS && 2 * subs <= fit) subs *= 2;
+  }
+  const int ts = DOCS * subs + TPAD, sdocs = DOCS * subs;
+  if (chunks == 1) place(nv, ts);
 
   // A strip's first S_THREADS 16-byte groups of slots, read ahead.
   int4 pid;
@@ -468,15 +386,7 @@ scores_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
               : make_float4(0.f, 0.f, 0.f, 0.f);
   };
 
-  if (chunks == 1) stage(0, m);
   const int strips = (n_pad + sdocs - 1) / sdocs;
-  const int items = nq * subs;
-  const int quads = (items + QUAD - 1) / QUAD;
-  const int sshift = __ffs(subs) - 1;     // item = query * subs + sub
-  // a lane's four docs of its item, carried across chunks (then a warp
-  // has one quad)
-  float sc[4];
-  int gr[4], rh[4];
   prefetch(blockIdx.x);
   for (int strip = blockIdx.x; strip < strips; strip += gridDim.x) {
     const long long doc0 = static_cast<long long>(strip) * sdocs;
@@ -484,7 +394,10 @@ scores_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
                                            : sdocs;
     const int n4 = ndocs * L / 4;         // L % 8 == 0
     for (int c = 0; c < chunks; ++c) {
-      if (chunks > 1) stage(c * mc, m - c * mc < mc ? m - c * mc : mc);
+      if (chunks > 1) {
+        nv = stage(c * mc, m - c * mc < mc ? m - c * mc : mc);
+        place(nv, ts);
+      }
       // 1. The strip's doc slots, 16 bytes at a time, contiguous across the
       //    block: each real term of the vocabulary writes its slot's
       //    saturation into its row (the rows hold NaN here).
@@ -494,7 +407,7 @@ scores_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
         if (static_cast<int>(threadIdx.x) < n4)
           fill_group(tab, ts, voc, nv, threadIdx.x / per_doc, pid, nullptr,
                      &psat);
-#pragma unroll 4
+#pragma unroll FILL
         for (int i = threadIdx.x + S_THREADS; i < n4; i += S_THREADS)
           fill_group(tab, ts, voc, nv, i / per_doc, __ldg(ids4 + g0 + i),
                      sat4 + g0 + i, nullptr);
@@ -503,110 +416,161 @@ scores_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
       // the next strip's first slots (this strip's again for the next
       // chunk), in flight while the warps score
       prefetch(c + 1 < chunks ? strip : strip + gridDim.x);
-      // 2. Each warp scores its quads.
-      const bool last = c == chunks - 1;
-      for (int qd = blockIdx.z * SW + warp; qd < quads; qd += qstep) {
-        const int item = qd * QUAD + quarter;
-        const bool mine_item = item < items;
-        const int it = mine_item ? item : items - 1;
-        const int ql = it >> sshift;
-        const int sub = it & (subs - 1);
-        const long long d = doc0 + sub * DOCS + col;
-        // the fused mode's distances, in flight while the terms are scored
-        float4 dv = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (dist != nullptr && last && mine_item) {
-          const float* dp = dist + (static_cast<size_t>(q0) + ql) * n_pad + d;
-          if (vec && d + 3 < n_pad) {
-            dv = __ldcs(reinterpret_cast<const float4*>(dp));
-          } else {
-            if (d < n_pad) dv.x = __ldcs(dp);
-            if (d + 1 < n_pad) dv.y = __ldcs(dp + 1);
-            if (d + 2 < n_pad) dv.z = __ldcs(dp + 2);
-            if (d + 3 < n_pad) dv.w = __ldcs(dp + 3);
-          }
-        }
-        if (c == 0) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            sc[k] = 0.f;
-            gr[k] = 0;
-            rh[k] = 0;
-          }
-        }
-        const int cnt = s_cnt[ql];
-        const int2* qe = ent + ql * mc;
-        const char* cell =
-            reinterpret_cast<const char*>(tab + sub * DOCS + col);
-        // past its count an item reads its staged pads: the NaN row and
-        // idf +0.0, which leave score and groups as they are
-        const int n_terms = __reduce_max_sync(FULL, cnt);
-        if (chunks == 1 && !__any_sync(FULL, s_multi[ql])) {
-          // every group one term: a hit is a matched group
-#pragma unroll 2
-          for (int jj = 0; jj < n_terms; ++jj) {
-            const int2 e = qe[jj];
-            const float4 x =
-                *reinterpret_cast<const float4*>(cell + (e.x & ~3));
-            const float idf = __int_as_float(e.y);
-            const float xv[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const bool hit = xv[k] == xv[k];
-              sc[k] = __fadd_rn(sc[k], __fmul_rn(idf, hit ? xv[k] : 0.f));
-              gr[k] += hit ? 1 : 0;
-            }
-          }
-        } else {
-#pragma unroll 2
-          for (int jj = 0; jj < n_terms; ++jj) {
-            const int2 e = qe[jj];
-            const float4 x =
-                *reinterpret_cast<const float4*>(cell + (e.x & ~3));
-            const float idf = __int_as_float(e.y);
-            const bool opens = e.x & 1;
-            const float xv[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const bool hit = xv[k] == xv[k];
-              if (opens) {
-                gr[k] += rh[k];
-                rh[k] = 0;
-              }
-              sc[k] = __fadd_rn(sc[k],
-                                __fmul_rn(idf, hit ? xv[k] : 0.f));
-              rh[k] |= hit ? 1 : 0;
-            }
-          }
-        }
-        if (!last || !mine_item) continue;
-        const float nd = s_need[ql];
-        const float dd[4] = {dv.x, dv.y, dv.z, dv.w};
-        float o[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          float val = sc[k];
-          if (dist != nullptr)
-            val = __fadd_rn(__fmul_rn(w_s, sc[k]), __fmul_rn(w_d, dd[k]));
-          // the mask last: the weights may be negative, -inf is never
-          // multiplied
-          o[k] = static_cast<float>(gr[k] + rh[k]) >= nd ? val : ninf;
-        }
-        float* op = out + (static_cast<size_t>(q0) + ql) * n_pad + d;
-        if (vec && d + 3 < n_pad) {
-          __stcs(reinterpret_cast<float4*>(op),
-                 make_float4(o[0], o[1], o[2], o[3]));
-        } else {
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (d + k < n_pad) __stcs(op + k, o[k]);
-        }
-      }
+      // 2. The work on the strip.
+      body(Walk{ent, s_need, s_cnt, s_multi, tab, ts, subs, doc0, c, chunks,
+                c == chunks - 1});
       __syncthreads();
       // 3. NaN again in the rows of this vocabulary.
       for (int i = threadIdx.x; i < nv * ts; i += S_THREADS) tab[i] = nan;
       __syncthreads();
     }
   }
+}
+
+// One item's terms of the current chunk: a quarter-warp, four docs a lane
+// (the cells at `cell`), the query's staged entries at `qe`. Adds into the
+// lane's score, matched groups and open-run hit per doc. Past its count an
+// item reads its staged pads: the NaN row and idf +0.0, which leave score
+// and groups as they are. `single`: every group of the warp's queries is
+// one term, so a hit is a matched group (uniform across the warp).
+__device__ __forceinline__ void score_item(const int2* qe, const char* cell,
+                                           int n_terms, bool single,
+                                           float (&sc)[4], int (&gr)[4],
+                                           int (&rh)[4]) {
+  if (single) {
+#pragma unroll 2
+    for (int jj = 0; jj < n_terms; ++jj) {
+      const int2 e = qe[jj];
+      const float4 x = *reinterpret_cast<const float4*>(cell + (e.x & ~3));
+      const float idf = __int_as_float(e.y);
+      const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const bool hit = xv[k] == xv[k];
+        sc[k] = __fadd_rn(sc[k], __fmul_rn(idf, hit ? xv[k] : 0.f));
+        gr[k] += hit ? 1 : 0;
+      }
+    }
+  } else {
+#pragma unroll 2
+    for (int jj = 0; jj < n_terms; ++jj) {
+      const int2 e = qe[jj];
+      const float4 x = *reinterpret_cast<const float4*>(cell + (e.x & ~3));
+      const float idf = __int_as_float(e.y);
+      const bool opens = e.x & 1;
+      const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const bool hit = xv[k] == xv[k];
+        if (opens) {
+          gr[k] += rh[k];
+          rh[k] = 0;
+        }
+        sc[k] = __fadd_rn(sc[k], __fmul_rn(idf, hit ? xv[k] : 0.f));
+        rh[k] |= hit ? 1 : 0;
+      }
+    }
+  }
+}
+
+// The fused mode's distances of docs d .. d + 3 of row `dp` (streaming
+// loads: the block is read once).
+__device__ __forceinline__ float4 load_dist4(const float* dp, long long d,
+                                             int n_pad, int vec) {
+  float4 dv = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (vec && d + 3 < n_pad) {
+    dv = __ldcs(reinterpret_cast<const float4*>(dp));
+  } else {
+    if (d < n_pad) dv.x = __ldcs(dp);
+    if (d + 1 < n_pad) dv.y = __ldcs(dp + 1);
+    if (d + 2 < n_pad) dv.z = __ldcs(dp + 2);
+    if (d + 3 < n_pad) dv.w = __ldcs(dp + 3);
+  }
+  return dv;
+}
+
+// The ranked values of a lane's four docs: the score, or the fused
+// combination, masked to -inf below `nd` matched groups (last: the weights
+// may be negative, -inf is never multiplied).
+__device__ __forceinline__ void ranked4(const float (&sc)[4],
+                                        const int (&gr)[4],
+                                        const int (&rh)[4], float nd,
+                                        bool fused, float4 dv, float w_s,
+                                        float w_d, float (&o)[4]) {
+  const float ninf = __int_as_float(0xff800000);
+  const float dd[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float val = sc[k];
+    if (fused) val = __fadd_rn(__fmul_rn(w_s, sc[k]), __fmul_rn(w_d, dd[k]));
+    o[k] = static_cast<float>(gr[k] + rh[k]) >= nd ? val : ninf;
+  }
+}
+
+// Per strip the unit's (query, sub-strip) items go four to a warp, a
+// quarter-warp an item and four docs a lane; the block takes the quads
+// z * SW + warp, stepping by gridDim.z * SW. See the top of the file.
+__global__ void __launch_bounds__(S_THREADS, S_BLOCKS)
+scores_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
+              const int4* __restrict__ qpack, const float* __restrict__ need,
+              const float* __restrict__ dist, float w_s, float w_d,
+              float* __restrict__ out, int n_pad, int L, int b, int m, int gq,
+              int mc, int subs0, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int quarter = lane >> 3;          // the lane's item of the quad
+  const int col = (lane & 7) * 4;         // its first doc in the sub-strip
+  const int q0 = blockIdx.y * gq;
+  const int nq = b - q0 < gq ? b - q0 : gq;
+  const int qstep = gridDim.z * SW;
+  // a lane's four docs of its item, carried across chunks (then a warp
+  // has one quad)
+  float sc[4];
+  int gr[4], rh[4];
+  walk_strips<4>(smem, term_ids, sat, qpack, need, n_pad, L, b, m, gq, mc,
+                 subs0, [&](const Walk& w) {
+    const int items = nq * w.subs;
+    const int quads = (items + QUAD - 1) / QUAD;
+    const int sshift = __ffs(w.subs) - 1;   // item = query * subs + sub
+    for (int qd = blockIdx.z * SW + warp; qd < quads; qd += qstep) {
+      const int item = qd * QUAD + quarter;
+      const bool mine_item = item < items;
+      const int it = mine_item ? item : items - 1;
+      const int ql = it >> sshift;
+      const int sub = it & (w.subs - 1);
+      const long long d = w.doc0 + sub * DOCS + col;
+      // the fused mode's distances, in flight while the terms are scored
+      float4 dv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (dist != nullptr && w.last && mine_item)
+        dv = load_dist4(dist + (static_cast<size_t>(q0) + ql) * n_pad + d, d,
+                        n_pad, vec);
+      if (w.c == 0) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          sc[k] = 0.f;
+          gr[k] = 0;
+          rh[k] = 0;
+        }
+      }
+      score_item(w.ent + ql * mc,
+                 reinterpret_cast<const char*>(w.tab + sub * DOCS + col),
+                 __reduce_max_sync(FULL, w.cnt[ql]),
+                 w.chunks == 1 && !__any_sync(FULL, w.multi[ql]), sc, gr, rh);
+      if (!w.last || !mine_item) continue;
+      float o[4];
+      ranked4(sc, gr, rh, w.need[ql], dist != nullptr, dv, w_s, w_d, o);
+      float* op = out + (static_cast<size_t>(q0) + ql) * n_pad + d;
+      if (vec && d + 3 < n_pad) {
+        __stcs(reinterpret_cast<float4*>(op),
+               make_float4(o[0], o[1], o[2], o[3]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (d + k < n_pad) __stcs(op + k, o[k]);
+      }
+    }
+  });
 }
 
 // ------------------------------------------------------------- selection
@@ -650,9 +614,9 @@ __device__ __forceinline__ void warp_sort_desc(u64 (&v)[R], int lane) {
   }
 }
 
-// Cut a warp's buffer of `cnt` <= 32 * R distinct keys to its min(cnt, k)
+// Cut a buffer of `cnt` <= 32 * R distinct keys to its min(cnt, k)
 // largest, sorted descending at buf[0 ..]; returns that count. Called by
-// the whole warp, where no doc row is held in registers.
+// the whole warp.
 template <int R>
 __device__ __forceinline__ int cut(u64* buf, int cnt, int k, int lane) {
   __syncwarp();
@@ -689,88 +653,155 @@ __device__ __forceinline__ void offer(u64 key, u64* buf, int& cnt, u64& thr,
   cnt += __popc(mask);
 }
 
-// Blocks wanted on an SM, as for impact_kernel: three for short rows, two
-// where the sort of a k > 96 buffer (R = 8) needs the registers.
-template <int LR, int R>
-__global__ void __launch_bounds__(THREADS, LR == 8 && R < 8 ? 3
-                                           : LR == 0 ? 1 : 2)
-topk_strip_kernel(const int* __restrict__ term_ids,
-                  const float* __restrict__ sat,
-                  const int4* __restrict__ qpack,
-                  const float* __restrict__ need,
-                  const float* __restrict__ dist, float w_s, float w_d,
-                  u64* __restrict__ part, int n_pad, int L, int b, int m,
-                  int k, int chunks, int nsub, int gq) {
+// cut<R>, or the 32-key sort where the buffer holds no more (cnt is the
+// same in every lane).
+template <int R>
+__device__ __forceinline__ int cut_fit(u64* buf, int cnt, int k, int lane) {
+  return cnt <= 32 ? cut<1>(buf, cnt, k, lane) : cut<R>(buf, cnt, k, lane);
+}
+
+// After a warp's appends (s_nkeys: each slot's count of keys): the warp cuts
+// each of its quarters' buffers that could not take another item's 32
+// keys; the quarter's threshold rises to the k-th key (`thr` is the same
+// in the quarter's lanes), and the query's threshold shared by all blocks
+// (`shared_thr`, the quarter's own) to at least that. Called by the whole
+// warp, seldom.
+template <int R>
+__device__ __forceinline__ void cut_full(u64* sel, int* s_nkeys, bool mine,
+                                         u64& thr, u64* shared_thr, int k,
+                                         int lane, int warp) {
+  constexpr int CAP = 32 * R;
+  const int quarter = lane >> 3;
+  __syncwarp();
+  const int cnt = mine ? s_nkeys[warp * QUAD + quarter] : 0;
+  unsigned full = __ballot_sync(FULL, cnt > CAP - 32);
+  while (full != 0) {
+    const int qq = (__ffs(full) - 1) >> 3;
+    full &= ~(0xffu << (qq * 8));
+    const int s = warp * QUAD + qq;
+    u64* qb = sel + static_cast<size_t>(s) * CAP;
+    const int keep = cut<R>(qb, s_nkeys[s], k, lane);   // keep == k
+    if (quarter == qq) {
+      thr = qb[k - 1] > thr ? qb[k - 1] : thr;
+      if ((lane & 7) == 0) atomicMax(shared_thr, thr);
+    }
+    if (lane == 0) s_nkeys[s] = keep;
+    __syncwarp();
+  }
+}
+
+// Block (x, y, z) walks the strips x, x + gridDim.x, .. for unit y and
+// selects for the unit's queries z * group .. (group of them): quarter
+// (warp, quarter) owns slot s = warp * QUAD + quarter < group * ways, its
+// query z * group + s / ways and its way s % ways. FUSED: dist is read; the
+// text kernel holds no registers for it. See the top of the file.
+template <int R, bool FUSED>
+__global__ void __launch_bounds__(S_THREADS, 1)
+topk_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
+            const int4* __restrict__ qpack, const float* __restrict__ need,
+            const float* __restrict__ dist, float w_s, float w_d,
+            u64* __restrict__ part, u64* __restrict__ shared_thr, int n_pad,
+            int L, int b, int m, int k, int gq, int mc, int subs0, int group,
+            int ways, int vec) {
   constexpr int CAP = 32 * R;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  const int sub = blockIdx.x / gq;
-  // the warp's queries: q0 + i * warps for i < QPW
-  const int q0 = (blockIdx.x - sub * gq) * warps * QPW + warp;
-  // per warp: QPW buffers, then the queries' thresholds and counts
-  u64* sel = reinterpret_cast<u64*>(smem) +
-             static_cast<size_t>(warp) * QPW * (CAP + 1);
-  u64* s_thr = sel + QPW * CAP;
-  int* s_cnt = reinterpret_cast<int*>(
-      reinterpret_cast<u64*>(smem) + static_cast<size_t>(warps) * QPW *
-                                         (CAP + 1)) + warp * QPW;
-  unsigned char* rows = reinterpret_cast<unsigned char*>(
-      reinterpret_cast<int*>(smem + static_cast<size_t>(warps) * QPW *
-                                        (CAP + 1) * sizeof(u64)) +
-      ((warps * QPW + 3) & ~3));
-  if (lane < QPW) {
-    s_thr[lane] = 0;          // every real key is above 0
-    s_cnt[lane] = 0;
-  }
-  __syncwarp();
-  const long long first = static_cast<long long>(sub) * chunks * DOCS;
-  for (int c = 0; c < chunks; ++c) {
-    const long long doc0 = first + static_cast<long long>(c) * DOCS;
-    if (doc0 >= n_pad) break;           // uniform across the block
-    const long long d = doc0 + lane;
-    const bool live = d < n_pad;
-    Row<LR> r;
-    int used = 0;
-    if constexpr (LR > 0)
-      load_row<LR>(term_ids, sat, d, live, r);
-    else
-      used = stage_rows(rows, term_ids, sat, doc0, n_pad, L);
-    // a loop, not unrolled: one copy of the scoring and of the selection
-    // in the kernel's code (four copies of the cut's sorting network
-    // overflowed the instruction cache)
-#pragma unroll 1
-    for (int i = 0; i < QPW; ++i) {
-      const int q = q0 + i * warps;
-      if (q >= b) break;      // uniform across the warp
-      int groups;
-      const float score = score_doc<LR>(qpack + static_cast<size_t>(q) * m,
-                                        m, r, rows, L, used, lane, groups);
-      u64 key = 0;
-      if (live)
-        key = make_key(ranked(score, groups, __ldg(need + q), dist,
-                              static_cast<size_t>(q) * n_pad + d, w_s, w_d),
-                       d);
-      u64 thr = s_thr[i];
-      int cnt = s_cnt[i];
-      offer<R>(key, sel + i * CAP, cnt, thr, k, lane);
-      __syncwarp();
-      if (lane == 0) {
-        s_thr[i] = thr;
-        s_cnt[i] = cnt;
+  const int quarter = lane >> 3;
+  const int col = (lane & 7) * 4;         // the lane's first doc of its item
+  const int q0 = blockIdx.y * gq;
+  const int nq = b - q0 < gq ? b - q0 : gq;
+  const int slots = group * ways;
+  const int g0 = blockIdx.z * group;      // the block's first query of the unit
+  u64* sel = reinterpret_cast<u64*>(
+      smem + ((scores_smem(gq, mc, subs0) + 15) & ~static_cast<size_t>(15)));
+  int* s_nkeys = reinterpret_cast<int*>(sel + static_cast<size_t>(slots) * CAP);
+  const int slot = warp * QUAD + quarter;
+  const bool mine = slot < slots && g0 + slot / ways < nq;
+  const int ql = mine ? g0 + slot / ways : 0;    // a real query in any case
+  const int way = slot % ways;
+  u64* buf = sel + static_cast<size_t>(mine ? slot : 0) * CAP;
+  for (int i = threadIdx.x; i < slots; i += S_THREADS) s_nkeys[i] = 0;
+  u64 thr = 0;                // every real key is above 0
+  // the query's k-th key in some block's slot: no key below it is among
+  // the query's k largest
+  u64* q_thr = shared_thr + q0 + ql;
+  float sc[4];
+  int gr[4], rh[4];
+  // one block an SM: more row loads in flight a thread (L = 512: the
+  // fill holds the walk)
+  walk_strips<8>(smem, term_ids, sat, qpack, need, n_pad, L, b, m, gq, mc,
+                 subs0, [&](const Walk& w) {
+    const int per = w.subs / ways;        // the slot's items in the strip
+    const bool single = w.chunks == 1 && !__any_sync(FULL, w.multi[ql]);
+    const int n_terms = __reduce_max_sync(FULL, w.cnt[ql]);
+    for (int j = 0; j < per; ++j) {
+      const int sub = way + j * ways;
+      const long long d = w.doc0 + sub * DOCS + col;
+      float4 dv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (FUSED && w.last && mine)
+        dv = load_dist4(dist + (static_cast<size_t>(q0) + ql) * n_pad + d, d,
+                        n_pad, vec);
+      // what the other blocks found, in flight while the item is scored
+      const u64 seen = w.last && mine ? __ldcg(q_thr) : 0ull;
+      if (w.c == 0) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          sc[kk] = 0.f;
+          gr[kk] = 0;
+          rh[kk] = 0;
+        }
       }
-      __syncwarp();
+      score_item(w.ent + ql * mc,
+                 reinterpret_cast<const char*>(w.tab + sub * DOCS + col),
+                 n_terms, single, sc, gr, rh);
+      if (!w.last) continue;    // uniform: carried to the next chunk
+      float o[4];
+      ranked4(sc, gr, rh, w.need[ql], FUSED, dv, w_s, w_d, o);
+      const u64 g = __shfl_sync(FULL, seen, quarter * 8);
+      thr = g > thr ? g : thr;
+      // the docs this lane has: none past n_pad, none for a quarter
+      // without a slot
+      const long long left = n_pad - d;
+      const int valid =
+          !mine || left <= 0 ? 0 : left < 4 ? static_cast<int>(left) : 4;
+      bool pass = false;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const u64 key = make_key(o[kk], d + kk);
+        if (kk < valid && key > thr) {
+          buf[atomicAdd(s_nkeys + slot, 1)] = key;
+          pass = true;
+        }
+      }
+      if (__any_sync(FULL, pass))
+        cut_full<R>(sel, s_nkeys, mine, thr, q_thr, k, lane, warp);
     }
+  });
+  // every slot cut to its top k ...
+  for (int qq = 0; qq < QUAD; ++qq) {
+    const int s = warp * QUAD + qq;
+    if (s >= slots) break;      // uniform across the warp
+    const int keep = cut_fit<R>(sel + static_cast<size_t>(s) * CAP,
+                                s_nkeys[s], k, lane);
+    if (lane == 0) s_nkeys[s] = keep;
   }
-#pragma unroll 1
-  for (int i = 0; i < QPW; ++i) {
-    const int q = q0 + i * warps;
-    if (q >= b) break;
-    u64* buf = sel + i * CAP;
-    const int keep = cut<R>(buf, s_cnt[i], k, lane);
-    u64* out = part + (static_cast<size_t>(q) * nsub + sub) * k;
-    for (int j = lane; j < k; j += 32) out[j] = j < keep ? buf[j] : 0ull;
+  __syncthreads();
+  // ... then a warp a query: its first slot takes the other ways' keys
+  for (int g = warp; g < group && g0 + g < nq; g += SW) {
+    u64* acc = sel + static_cast<size_t>(g) * ways * CAP;
+    int n = s_nkeys[g * ways];
+    u64 t = n == k ? acc[k - 1] : 0ull;
+    for (int x = 1; x < ways; ++x) {
+      const u64* src = sel + static_cast<size_t>(g * ways + x) * CAP;
+      const int ns = s_nkeys[g * ways + x];
+      for (int j = 0; j < ns; j += 32)
+        offer<R>(j + lane < ns ? src[j + lane] : 0ull, acc, n, t, k, lane);
+    }
+    if (ways > 1) n = cut<R>(acc, n, k, lane);
+    u64* out = part + (static_cast<size_t>(q0 + g0 + g) * gridDim.x +
+                       blockIdx.x) * k;
+    for (int j = lane; j < k; j += 32) out[j] = j < n ? acc[j] : 0ull;
   }
 }
 
@@ -803,7 +834,7 @@ topk_merge_kernel(const u64* __restrict__ part, int nsub, int k,
       offer<R>(j + lane < n ? s_buf[w][j + lane] : 0ull, buf, cnt, thr, k,
                lane);
   }
-  // k <= n_pad: the sub-strips held at least k real keys between them
+  // k <= n_pad: the blocks held at least k real keys between them
   cut<R>(buf, cnt, k, lane);
   for (int j = lane; j < k; j += 32) {
     const size_t at = static_cast<size_t>(q) * k + j;
@@ -878,79 +909,58 @@ int launch_scores(const int* term_ids, const float* sat, const int4* qpack,
   return static_cast<int>(cudaGetLastError());
 }
 
-// How impact_bm25_topk cuts the work: 32-doc chunks of a sub-strip, the
-// number of sub-strips, warps a block, blocks a sub-strip, and R: a
-// buffer holds 32 * R keys, at least k + 32.
-struct Geometry {
-  int chunks, nsub, warps, gq, r;
-};
+// The sort width of a slot's buffer: 32 * r keys, at least k + 32.
+int topk_r(int k) { return k <= 32 ? 2 : k <= 96 ? 4 : 8; }
 
-Geometry topk_geometry(int n_pad, int L, int b, int k) {
-  Geometry g;
-  const int qsets = (b + QPW - 1) / QPW;
-  // a warp for each query of a small batch; long rows are staged by the
-  // whole block: keep 8 warps for the copy
-  g.warps = L > 32 || b > WARPS ? WARPS : b;
-  g.gq = (b + g.warps * QPW - 1) / (g.warps * QPW);
-  g.chunks = MAX_CHUNKS;
-  while (g.chunks > MIN_CHUNKS &&
-         static_cast<long long>((n_pad + DOCS * g.chunks - 1) /
-                                (DOCS * g.chunks)) * qsets < TARGET_WARPS)
-    g.chunks /= 2;
-  g.nsub = (n_pad + DOCS * g.chunks - 1) / (DOCS * g.chunks);
-  g.r = k <= 32 ? 2 : k <= 96 ? 4 : 8;
-  return g;
+// A plan of topk_kernel (ops/impact_bm25.py:_topk_plan): units of gq
+// queries and chunks of mc terms, as the scores kernel's (the host packed
+// the vocabulary by them); `group` queries a block, `ways` slots a query
+// (group * ways <= SLOTS), strips of `subs` sub-strips (ways divides them;
+// with more than one chunk a slot carries its one item across the chunks:
+// ways == subs), `blocks` blocks walking the strips of each (unit, group).
+bool topk_plan_ok(int n_pad, int b, int m, int k, int gq, int mc, int subs,
+                  int group, int ways, int blocks) {
+  if (gq < 1 || gq > b || mc < 1 || mc > m ||
+      static_cast<long long>(gq) * mc > UNIT_ENTRIES || subs < 1 ||
+      subs > TOPK_MAX_SUBS || (subs & (subs - 1)) != 0 || ways < 1 ||
+      ways > subs || (ways & (ways - 1)) != 0 || group < 1 || group > gq ||
+      group * ways > SLOTS || blocks < 1)
+    return false;
+  if (topk_smem(gq, mc, subs, group * ways, topk_r(k)) > TOPK_SMEM)
+    return false;
+  if ((b + gq - 1) / gq > 65535 || (gq + group - 1) / group > 65535)
+    return false;
+  const long long strips = (n_pad + DOCS * subs - 1) / (DOCS * subs);
+  if (blocks > strips) return false;
+  return mc == m || ways == subs;
 }
 
-// Shared memory of topk_strip_kernel: buffers, thresholds, counts (rounded
-// to 16 bytes), then long rows.
-size_t topk_smem(int warps, int L, int LR, int R) {
-  size_t bytes = static_cast<size_t>(warps) * QPW * (32 * R + 1) *
-                     sizeof(u64) +
-                 ((warps * QPW + 3) & ~3) * sizeof(int);
-  if (LR == 0) bytes += static_cast<size_t>(2) * L * ROW_PAD * sizeof(int);
-  return bytes;
-}
-
-template <int LR, int R>
-int launch_topk(const Geometry& g, const int* term_ids, const float* sat,
-                const int4* qpack, const float* need, const float* dist,
-                float w_s, float w_d, u64* part, float* vals, long long* ids,
-                int n_pad, int L, int b, int m, int k, cudaStream_t stream) {
-  auto strip = topk_strip_kernel<LR, R>;
-  static std::atomic<bool> done[MAX_DEVICES];
-  cudaError_t err = allow_smem(strip, topk_smem(WARPS, MAX_L, LR, R), done);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem_bytes = topk_smem(g.warps, L, LR, R);
-  strip<<<g.nsub * g.gq, 32 * g.warps, smem_bytes, stream>>>(
-      term_ids, sat, qpack, need, dist, w_s, w_d, part, n_pad, L, b, m, k,
-      g.chunks, g.nsub, g.gq);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  topk_merge_kernel<R><<<b, THREADS, 0, stream>>>(part, g.nsub, k, vals, ids);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int LR>
+template <int R, bool FUSED>
 int launch_topk(const int* term_ids, const float* sat, const int4* qpack,
                 const float* need, const float* dist, float w_s, float w_d,
                 u64* part, float* vals, long long* ids, int n_pad, int L,
-                int b, int m, int k, cudaStream_t stream) {
-  const Geometry g = topk_geometry(n_pad, L, b, k);
-  switch (g.r) {
-    case 2:
-      return launch_topk<LR, 2>(g, term_ids, sat, qpack, need, dist, w_s,
-                                w_d, part, vals, ids, n_pad, L, b, m, k,
-                                stream);
-    case 4:
-      return launch_topk<LR, 4>(g, term_ids, sat, qpack, need, dist, w_s,
-                                w_d, part, vals, ids, n_pad, L, b, m, k,
-                                stream);
-    default:
-      return launch_topk<LR, 8>(g, term_ids, sat, qpack, need, dist, w_s,
-                                w_d, part, vals, ids, n_pad, L, b, m, k,
-                                stream);
-  }
+                int b, int m, int k, int gq, int mc, int subs, int group,
+                int ways, int blocks, cudaStream_t stream) {
+  auto kernel = topk_kernel<R, FUSED>;
+  static std::atomic<bool> done[MAX_DEVICES];
+  cudaError_t err = allow_smem(kernel, TOPK_SMEM, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int units = (b + gq - 1) / gq;
+  const int qsplit = (gq + group - 1) / group;
+  // 16-byte rows of dist
+  const int vec = n_pad % 4 == 0 && reinterpret_cast<size_t>(dist) % 16 == 0;
+  const dim3 grid(static_cast<unsigned>(blocks), units, qsplit);
+  u64* shared_thr = part + static_cast<size_t>(b) * blocks * k;
+  err = cudaMemsetAsync(shared_thr, 0, b * sizeof(u64), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, S_THREADS, topk_smem(gq, mc, subs, group * ways, R),
+           stream>>>(term_ids, sat, qpack, need, dist, w_s, w_d, part,
+                     shared_thr, n_pad, L, b, m, k, gq, mc, subs, group, ways,
+                     vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  topk_merge_kernel<R><<<b, THREADS, 0, stream>>>(part, blocks, k, vals, ids);
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int ERR_SHAPE = -1;
@@ -996,24 +1006,29 @@ int impact_bm25_scores_unit_entries() { return UNIT_ENTRIES; }
 // The largest k impact_bm25_topk_launch takes.
 int impact_bm25_topk_max_k() { return MAX_K; }
 
-// The 8-byte words of scratch impact_bm25_topk_launch needs at this shape,
-// or ERR_SHAPE.
-long long impact_bm25_topk_workspace(int n_pad, int L, int b, int k) {
-  if (!shape_ok(n_pad, L, b, 1) || k < 1 || k > MAX_K || k > n_pad)
-    return ERR_SHAPE;
-  return static_cast<long long>(b) * topk_geometry(n_pad, L, b, k).nsub * k;
+// The shared memory of a topk block (gq queries and mc terms a unit, strips
+// of `subs` sub-strips, `slots` slots, k of sort width r) and the budget
+// of such blocks: ops/impact_bm25.py:_topk_smem and TOPK_SMEM must agree.
+long long impact_bm25_topk_smem(int gq, int mc, int subs, int slots, int r) {
+  return static_cast<long long>(topk_smem(gq, mc, subs, slots, r));
 }
+int impact_bm25_topk_budget() { return TOPK_SMEM; }
 
 // The k largest ranked values per query (see the top of the file) into
 // vals [b, k] f32 and ids [b, k] int64, through `part`, a scratch buffer of
-// impact_bm25_topk_workspace(n_pad, L, b, k) words. Operands and return
-// codes as impact_bm25_scores_launch, and 1 <= k <= min(MAX_K, n_pad).
+// b * (blocks * k + 1) 8-byte words. (gq, mc, subs, group, ways, blocks) is the
+// plan, from ops/impact_bm25.py:_topk_plan (gq and mc those the vocabulary
+// rows were packed by). Operands and return codes as
+// impact_bm25_scores_launch, and 1 <= k <= min(MAX_K, n_pad).
 int impact_bm25_topk_launch(const void* term_ids, const void* sat,
                             const void* qpack, const void* need,
                             const void* dist, float w_s, float w_d,
                             void* part, void* vals, void* ids, int n_pad,
-                            int L, int b, int m, int k, void* stream) {
-  if (!shape_ok(n_pad, L, b, m) || k < 1 || k > MAX_K || k > n_pad)
+                            int L, int b, int m, int k, int gq, int mc,
+                            int subs, int group, int ways, int blocks,
+                            void* stream) {
+  if (!shape_ok(n_pad, L, b, m) || k < 1 || k > MAX_K || k > n_pad ||
+      !topk_plan_ok(n_pad, b, m, k, gq, mc, subs, group, ways, blocks))
     return ERR_SHAPE;
   const int* ti = static_cast<const int*>(term_ids);
   const float* sa = static_cast<const float*>(sat);
@@ -1024,20 +1039,14 @@ int impact_bm25_topk_launch(const void* term_ids, const void* sat,
   float* va = static_cast<float*>(vals);
   long long* ix = static_cast<long long*>(ids);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (L) {
-    case 8:
-      return launch_topk<8>(ti, sa, qp, nd, di, w_s, w_d, pa, va, ix, n_pad,
-                            L, b, m, k, st);
-    case 16:
-      return launch_topk<16>(ti, sa, qp, nd, di, w_s, w_d, pa, va, ix, n_pad,
-                             L, b, m, k, st);
-    case 32:
-      return launch_topk<32>(ti, sa, qp, nd, di, w_s, w_d, pa, va, ix, n_pad,
-                             L, b, m, k, st);
-    default:
-      return launch_topk<0>(ti, sa, qp, nd, di, w_s, w_d, pa, va, ix, n_pad,
-                            L, b, m, k, st);
-  }
+  const bool fused = di != nullptr;
+  auto launch = fused ? launch_topk<8, true> : launch_topk<8, false>;
+  if (topk_r(k) == 2)
+    launch = fused ? launch_topk<2, true> : launch_topk<2, false>;
+  else if (topk_r(k) == 4)
+    launch = fused ? launch_topk<4, true> : launch_topk<4, false>;
+  return launch(ti, sa, qp, nd, di, w_s, w_d, pa, va, ix, n_pad, L, b, m, k,
+                gq, mc, subs, group, ways, blocks, st);
 }
 
 const char* impact_bm25_scores_error_string(int err) {

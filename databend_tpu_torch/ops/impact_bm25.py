@@ -47,9 +47,12 @@ top-k after it depends on that).
 and their ``k`` largest per query, in ``jax.lax.top_k``'s order
 (``ops.topk.topk_largest_lowest_index``), which is what the reference's
 programs return. On a CUDA tensor it launches the selecting entry point of
-the same source, which never writes the ``[b, n_pad]`` block; its plain
-version ``_impact_bm25_topk_plain`` is the plain scores followed by that
-top-k. Above ``MAX_K`` it runs ``impact_bm25_scores`` and the top-k instead
+the same source, which never writes the ``[b, n_pad]`` block: it scores
+from the same table and keeps each query's top k in shared memory, cut
+against a threshold the blocks share (``_topk_plan`` cuts the launch: the
+scores kernel's units, queries a block, slots a query, strips, blocks); its
+plain version ``_impact_bm25_topk_plain`` is the plain scores followed by
+that top-k. Above ``MAX_K`` it runs ``impact_bm25_scores`` and the top-k instead
 (a shape rule: each launch counts on its own wrapper).
 """
 
@@ -74,6 +77,10 @@ SCORES_WARPS = 16         # warps of a scores block
 MAX_SUBS = 8              # 32-doc sub-strips of a scores strip
 SCORES_SMEM = 112 * 1024  # a scores block's shared memory: two an SM
 FILL_BLOCKS = 2 * 132     # scores blocks the card holds at once
+TOPK_SLOTS = 64           # quarter-warps of a selecting block: a slot each
+TOPK_MAX_SUBS = 64        # 32-doc sub-strips of a selecting plan's strip
+TOPK_SMEM = 220 * 1024    # a selecting block's shared memory: one an SM
+SMS = 132                 # SMs of an H100 (the plan reads the card's)
 NEG_INF = float("-inf")
 
 
@@ -142,6 +149,62 @@ def strip_subs(plan: ScoresPlan, rows: int) -> int:
     while subs < MAX_SUBS and 2 * subs <= fit:
         subs *= 2
     return subs
+
+
+class TopkPlan(NamedTuple):
+    """How ``impact_bm25_topk`` runs a shape: the scores kernel's ``units``
+    of ``queries`` queries and ``chunks`` of ``terms`` terms; ``group``
+    queries of a unit a block (``qsplit`` blocks a unit's queries), each
+    query in ``ways`` slots of a quarter-warp; strips of ``subs`` 32-doc
+    sub-strips (a slot scores every ``ways``-th); buffers of ``32 * r``
+    keys; ``blocks`` blocks walking the strips of each (unit, group)."""
+    queries: int
+    terms: int
+    units: int
+    chunks: int
+    group: int
+    qsplit: int
+    subs: int
+    ways: int
+    r: int
+    blocks: int
+
+
+def _topk_smem(gq: int, mc: int, subs: int, slots: int, r: int) -> int:
+    """csrc/impact_bm25_scores.cu:topk_smem: the scores kernel's table and
+    staging, rounded to 16 bytes, then per slot 32 * r keys and a count."""
+    return -(-_scores_smem(gq, mc, subs) // 16) * 16 + slots * (256 * r + 4)
+
+
+def _topk_plan(n_pad: int, b: int, m: int, k: int, sms: int = SMS) -> TopkPlan:
+    """The units of ``query_units``; the fewest blocks a unit's queries
+    (each block builds the strip's table for its own), then the widest
+    strips (up to ``TOPK_MAX_SUBS``, under twice the block) whose table and
+    slot buffers fit ``TOPK_SMEM``; as many ways a query as fill the
+    block's ``TOPK_SLOTS`` quarter-warps (with more than one chunk a slot
+    carries its one item a strip: ways = subs); persistent blocks, one an
+    SM over the units and groups, no more than the strips."""
+    gq, mc = query_units(b, m)
+    units, chunks = -(-b // gq), -(-m // mc)
+    r = 2 if k <= 32 else 4 if k <= 96 else 8
+    widest = TOPK_MAX_SUBS
+    while widest > 1 and 32 * widest >= 2 * n_pad:
+        widest //= 2
+    for qsplit in range(-(-gq // TOPK_SLOTS), gq + 1):
+        group = -(-gq // qsplit)
+        subs = widest
+        while subs >= 1:
+            ways = min(1 << (TOPK_SLOTS // group).bit_length() - 1, subs)
+            if chunks > 1:
+                ways = subs
+            if group * ways <= TOPK_SLOTS and _topk_smem(
+                    gq, mc, subs, group * ways, r) <= TOPK_SMEM:
+                strips = -(-n_pad // (32 * subs))
+                blocks = max(1, min(strips, sms // (units * qsplit)))
+                return TopkPlan(gq, mc, units, chunks, group, qsplit, subs,
+                                ways, r, blocks)
+            subs //= 2
+    raise AssertionError("unreachable: one query a block always fits")
 
 
 def _units(b: int, m: int) -> np.ndarray:
@@ -375,9 +438,10 @@ def impact_bm25_topk(term_ids: torch.Tensor, sat: torch.Tensor,
     b, m = qpack.shape[:2]
     lib = _launcher()
     dev = term_ids.device
-    words = lib.impact_bm25_topk_workspace(n_pad, slots, b, k)
-    _raise_on(lib, "impact_bm25_topk", words if words < 0 else 0)
-    part = torch.empty(words, dtype=torch.int64, device=dev)
+    plan = _topk_plan(n_pad, b, m, k, _sms(dev))
+    # the blocks' top k per query, then a threshold per query
+    part = torch.empty(b * (plan.blocks * k + 1), dtype=torch.int64,
+                       device=dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     ids = torch.empty((b, k), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
@@ -386,7 +450,8 @@ def impact_bm25_topk(term_ids: torch.Tensor, sat: torch.Tensor,
             term_ids.data_ptr(), sat.data_ptr(), qpack.data_ptr(),
             need.data_ptr(), dist.data_ptr() if dist is not None else None,
             float(w_s), float(w_d), part.data_ptr(), vals.data_ptr(),
-            ids.data_ptr(), n_pad, slots, b, m, k, stream)
+            ids.data_ptr(), n_pad, slots, b, m, k, plan.queries, plan.terms,
+            plan.subs, plan.group, plan.ways, plan.blocks, stream)
     _raise_on(lib, "impact_bm25_topk", err)
     impact_bm25_topk.launches += 1
     return vals, ids
@@ -400,9 +465,16 @@ impact_bm25_topk.launches = 0
 _LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 \
     + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # impact_bm25_topk_launch: the same operands; w_s, w_d; part, vals, ids;
-# n_pad, L, b, m, k; stream
+# n_pad, L, b, m, k; the plan's queries, terms, subs, group, ways and
+# blocks; stream
 _TOPK_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 \
-    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    """The card's SMs, which the selecting plan's persistent blocks fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache
@@ -413,8 +485,10 @@ def _launcher() -> ctypes.CDLL:
     lib.impact_bm25_scores_launch.restype = ctypes.c_int
     lib.impact_bm25_topk_launch.argtypes = _TOPK_ARGTYPES
     lib.impact_bm25_topk_launch.restype = ctypes.c_int
-    lib.impact_bm25_topk_workspace.argtypes = [ctypes.c_int] * 4
-    lib.impact_bm25_topk_workspace.restype = ctypes.c_longlong
+    lib.impact_bm25_topk_smem.argtypes = [ctypes.c_int] * 5
+    lib.impact_bm25_topk_smem.restype = ctypes.c_longlong
+    lib.impact_bm25_topk_budget.argtypes = []
+    lib.impact_bm25_topk_budget.restype = ctypes.c_int
     lib.impact_bm25_topk_max_k.argtypes = []
     lib.impact_bm25_topk_max_k.restype = ctypes.c_int
     lib.impact_bm25_scores_unit_entries.argtypes = []
@@ -422,7 +496,11 @@ def _launcher() -> ctypes.CDLL:
     lib.impact_bm25_scores_error_string.argtypes = [ctypes.c_int]
     lib.impact_bm25_scores_error_string.restype = ctypes.c_char_p
     if lib.impact_bm25_topk_max_k() != MAX_K \
-            or lib.impact_bm25_scores_unit_entries() != UNIT_ENTRIES:
+            or lib.impact_bm25_scores_unit_entries() != UNIT_ENTRIES \
+            or lib.impact_bm25_topk_budget() != TOPK_SMEM \
+            or any(lib.impact_bm25_topk_smem(128, 4, 8, 64, r)
+                   != _topk_smem(128, 4, 8, 64, r) for r in (2, 4, 8)):
         raise RuntimeError("csrc/impact_bm25_scores.cu and ops/impact_bm25.py "
-                           "disagree on MAX_K or UNIT_ENTRIES")
+                           "disagree on MAX_K, UNIT_ENTRIES or the selecting "
+                           "kernel's shared memory")
     return lib

@@ -16,10 +16,15 @@ must be bit-equal to that checkout's plain version and ``impact_bm25_topk``
 at k = 10 must give the plain version's ids and value bits; then each is
 timed with CUDA events, the mean of 20 calls after one warm-up: on the card
 (the calls captured in one CUDA graph and replayed) and a call of the
-wrapper from the host, and printed on an ``[ab]`` line beside its bound (one read of the layout, the query
-operands and the distance term and one write of the output at 3.35 TB/s;
-for the scores, ``sat`` only at the slots some query term asks for, as in
-``chip_smoke.impact_bound``).
+wrapper from the host, and printed on an ``[ab]`` line beside its bound,
+that of ``chip_smoke.impact_bound``: one read of the layout, the query
+operands and the distance term and one write of the output at 3.35 TB/s
+(``sat`` only at the slots some query term asks for), or
+one f32 product and sum per (query, doc, real query term) at 67 TFLOP/s
+and, for the selection, one key compare per (query, doc) at the int32
+rate, whichever is larger: the function's work, whatever design runs it.
+The pair the selecting kernel replaced (``impact_bm25_scores``, then
+``topk_largest_lowest_index``) is timed the same ways at k = 10.
 Give the roots as A, B, B, A to compare two trees on one card. Exits
 non-zero if a run fails.
 """
@@ -136,20 +141,30 @@ for name, n_docs, slots, b, m, and_mode, metric in shapes:
     read = sum(t.numel() * t.element_size() for t in ops) \
         + (dist.numel() * 4 if dist is not None else 0)
     terms = ops[2][..., 0]
-    # the scores need sat only where some query asks for the slot's term
-    unread = ops[1].numel() * 4 - 4 * int(
+    # the function needs sat only where some query asks for the slot's term
+    read -= ops[1].numel() * 4 - 4 * int(
         torch.isin(ops[0], terms[terms >= 0]).sum())
-    for entry, moved, fn in (
-            ("impact_bm25_scores", read - unread + b * N * 4,
+    products = 2 * int((terms >= 0).sum()) * N / 67e12 * 1e3
+    for entry, moved, t_ops, fn in (
+            ("impact_bm25_scores", read + b * N * 4, products,
              lambda: ib.impact_bm25_scores(*ops, dist, w_s, w_d)),
             ("impact_bm25_topk k=10", read + b * K * 12,
+             products + b * N / (132 * 64 * 1.98e9) * 1e3,
              lambda: ib.impact_bm25_topk(*ops, K, dist, w_s, w_d))):
         ms, call_ms = ms_of(fn, True), ms_of(fn, False)
-        bound = moved / 3.35e12 * 1e3
+        bound, by = max((moved / 3.35e12 * 1e3, "bytes"),
+                        (t_ops, "operations"))
         print(f"[ab] {root}: {entry} {what}: {ms:.4f} ms on the card "
-              f"({call_ms:.4f} ms a call of the wrapper), bytes bound "
-              f"{bound:.4f} ms ({100 * bound / ms:.0f}%) [{card}]",
+              f"({call_ms:.4f} ms a call of the wrapper), bound "
+              f"{bound:.4f} ms ({by}, {100 * bound / ms:.0f}%) [{card}]",
               flush=True)
+    # the pair the selecting kernel replaced: the scores, then the top-k
+    pair = lambda: ib.topk_largest_lowest_index(      # noqa: E731
+        ib.impact_bm25_scores(*ops, dist, w_s, w_d), K)
+    print(f"[ab] {root}: the pair k=10 {what}: {ms_of(pair, True):.4f} ms "
+          f"on the card "
+          f"({ms_of(pair, False):.4f} ms a call of the wrappers) [{card}]",
+          flush=True)
     del ops, dist
     torch.cuda.empty_cache()
 '''

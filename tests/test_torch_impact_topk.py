@@ -227,21 +227,64 @@ class _Warp:
         return self.buf
 
 
-def _select_like_the_kernel(keys, k, strip, warps=8):
-    """Phase one: per query and sub-strip of ``strip`` docs, ascending
-    32-doc chunks into a warp's buffer, its top k (padded with the empty
-    key) to ``part``. Phase two: ``warps`` warps
-    scan the query's part in the kernel's interleaving, warp 0 merges the
-    others' top k."""
+class _Slot:
+    """One slot of a selecting block (a quarter-warp: a query and a way): a
+    buffer and a threshold, fed one item's keys (32 docs) at a time. Before
+    each item it takes the query's threshold shared by all blocks
+    (``shared``, one value); a buffer that could not take another item's 32
+    keys is cut, its threshold rises to the k-th key and the shared one to
+    at least that."""
+
+    def __init__(self, k, shared):
+        self.k, self.cap, self.shared = k, _buffer_keys(k), shared
+        self.buf, self.thr = [], INT64_MIN
+
+    def step(self, keys):
+        self.thr = max(self.thr, self.shared[0])
+        self.buf += [x for x in keys if x > self.thr]
+        assert len(self.buf) <= self.cap
+        if len(self.buf) > self.cap - 32:
+            self.buf = _cut(self.buf, self.k)
+            self.thr = max(self.thr, self.buf[-1])
+            self.shared[0] = max(self.shared[0], self.thr)
+
+
+def _select_like_the_kernel(keys, k, subs, ways, blocks, warps=8):
+    """Phase one: block x of ``blocks`` walks the strips x, x + blocks, ..
+    of ``32 * subs`` docs, the blocks in turns strip by strip (one order in
+    which the card may run them); each of a query's ``ways`` slots takes
+    the sub-strips way, way + ways, .. of a strip, 32 docs an item (pad
+    docs past the row give the empty key); at the end each slot is cut, the
+    first slot takes the others' keys as a warp does, and the block's top k
+    (padded with the empty key) goes to ``part``. Phase two: ``warps``
+    warps scan the query's part in the kernel's interleaving, warp 0 merges
+    the others' top k."""
     n = keys.shape[1]
+    sdocs = 32 * subs
+    strips = -(-n // sdocs)
     out = []
     for row in keys.tolist():
+        row = row + [INT64_MIN] * (strips * sdocs - n)
+        shared = [INT64_MIN]
+        slots = [[_Slot(k, shared) for _ in range(ways)]
+                 for _ in range(blocks)]
+        for first in range(0, strips, blocks):
+            for x in range(blocks):
+                s = first + x
+                for w, slot in enumerate(slots[x] if s < strips else []):
+                    for sub in range(w, subs, ways):
+                        d0 = s * sdocs + sub * 32
+                        slot.step(row[d0:d0 + 32])
         part = []
-        for s in range(0, n, strip):
-            w = _Warp(k)
-            for c in range(s, min(s + strip, n), 32):
-                w.offer(row[c:min(c + 32, s + strip, n)])
-            top = w.top()
+        for block in slots:
+            lead = _Warp(k)
+            lead.buf = _cut(block[0].buf, k)
+            lead.thr = lead.buf[-1] if len(lead.buf) == k else INT64_MIN
+            for slot in block[1:]:
+                top = _cut(slot.buf, k)
+                for j in range(0, len(top), 32):
+                    lead.offer(top[j:j + 32])
+            top = lead.top()
             part += top + [INT64_MIN] * (k - len(top))
         ws = [_Warp(k) for _ in range(warps)]
         for wi, w in enumerate(ws):
@@ -264,15 +307,20 @@ def _unkey(keys):
     return bits.view(torch.float32), 0xFFFFFFFF - (keys & 0xFFFFFFFF)
 
 
-@pytest.mark.parametrize("k,strip", [(1, 128), (10, 128), (10, 1024),
-                                     (40, 256), (128, 512)])
-def test_strip_then_merge_selection_is_the_tie_rule_top_k(k, strip):
+@pytest.mark.parametrize("k,subs,ways,blocks", [
+    (1, 8, 1, 3), (10, 8, 1, 5), (10, 16, 8, 7), (10, 2, 2, 40),
+    (40, 64, 64, 2), (128, 1, 1, 4), (128, 16, 8, 1)])
+def test_strip_then_merge_selection_is_the_tie_rule_top_k(k, subs, ways,
+                                                          blocks):
     """The kernel's algorithm in torch: u64 keys (as ordered int64), a
-    running buffer per warp over ascending docs, a merge of the sub-strips'
-    top k. It equals ``topk_largest_lowest_index`` on the same scores:
-    signed zeros, -inf runs, ties by the hundred, scores rising with the
-    doc (each doc enters the top k: the most cuts)."""
-    rng = np.random.default_rng(k + strip)
+    buffer per slot over the block's strips in any order of its ways, a
+    threshold shared by the blocks, a merge of a query's slots in the block
+    and of the blocks' top k (blocks past the last strip give empty keys
+    only). It equals
+    ``topk_largest_lowest_index`` on the same scores: signed zeros, -inf
+    runs, ties by the hundred, scores rising with the doc (each doc enters
+    the top k: the most cuts)."""
+    rng = np.random.default_rng(k + subs + ways + blocks)
     n = 1500
     pool = np.array([0.0, -0.0, 1.5, 2.5, -3.0, -np.inf], np.float32)
     scores = pool[rng.integers(0, len(pool), (4, n))]
@@ -281,11 +329,92 @@ def test_strip_then_merge_selection_is_the_tie_rule_top_k(k, strip):
     scores[2, 200:1400] = -np.inf
     scores[3] = rng.standard_normal(n).astype(np.float32)
     values = torch.from_numpy(scores)
-    got = _select_like_the_kernel(_keys(values), k, strip)
+    got = _select_like_the_kernel(_keys(values), k, subs, ways, blocks)
     gv, gi = _unkey(got)
     wv, wi = topk_largest_lowest_index(values, k)
     assert torch.equal(gi, wi)
     assert gv.numpy().tobytes() == wv.numpy().tobytes()
+
+
+# ------------------------------------------------------------- the plan
+@pytest.mark.parametrize("n_pad", [12, 262_144])
+@pytest.mark.parametrize("b", [1, 8, 128, 130])
+@pytest.mark.parametrize("m", [4, 16, 700])
+@pytest.mark.parametrize("k", [1, 40, 128])
+def test_topk_plan_fits_the_kernel(n_pad, b, m, k):
+    """What the C launcher accepts (``topk_plan_ok``): the scores kernel's
+    units (the host packed the vocabulary by them), a slot a quarter-warp
+    at most, ways that divide the strip (one item a slot across chunks),
+    the table and the buffers within the shared memory budget, blocks no
+    more than the strips. It fills the card: as many ways as the block's
+    quarter-warps take, blocks enough for the card's SMs where the strips
+    allow, the fewest blocks a unit's queries."""
+    k = min(k, n_pad)
+    p = impact_bm25._topk_plan(n_pad, b, m, k)
+    assert (p.queries, p.terms) == impact_bm25.query_units(b, m)
+    assert p.units == -(-b // p.queries) and p.chunks == -(-m // p.terms)
+    assert p.r == (2 if k <= 32 else 4 if k <= 96 else 8)
+    assert 32 * p.r >= k + 32
+    assert p.qsplit == -(-p.queries // p.group)
+    slots = p.group * p.ways
+    assert slots <= impact_bm25.TOPK_SLOTS
+    for x in (p.subs, p.ways):
+        assert x >= 1 and x & (x - 1) == 0
+    assert p.ways <= p.subs <= impact_bm25.TOPK_MAX_SUBS
+    assert p.subs == 1 or 32 * p.subs < 2 * n_pad
+    assert impact_bm25._topk_smem(p.queries, p.terms, p.subs, slots, p.r) \
+        <= impact_bm25.TOPK_SMEM
+    if p.chunks > 1:
+        assert p.ways == p.subs
+    else:
+        assert p.ways == p.subs or 2 * slots > impact_bm25.TOPK_SLOTS
+    strips = -(-n_pad // (32 * p.subs))
+    assert p.blocks == max(1, min(strips, impact_bm25.SMS
+                                  // (p.units * p.qsplit)))
+    fewest = -(-p.queries // impact_bm25.TOPK_SLOTS)
+    assert p.qsplit >= fewest
+    if p.qsplit > fewest:     # one block fewer a unit would not fit
+        group = -(-p.queries // (p.qsplit - 1))
+        assert impact_bm25._topk_smem(p.queries, p.terms, 1, group, p.r) \
+            > impact_bm25.TOPK_SMEM
+
+
+# (b, m, k) -> (units, group, qsplit, subs, ways, blocks) on a block of
+# 262,144 docs: the shapes of chip_smoke.py's kernel phase (L = 8, 64, 512
+# take the same plan: the table holds a sub-strip's cells, not its rows)
+@pytest.mark.parametrize("slots", [8, 64, 512])
+@pytest.mark.parametrize("b,m,k,want", [
+    (128, 4, 10, (1, 64, 2, 2, 1, 66)),
+    (8, 4, 10, (1, 8, 1, 32, 8, 132)),
+    (1, 4, 10, (1, 1, 1, 64, 64, 128)),
+    (128, 8, 10, (2, 64, 1, 2, 1, 66)),
+    (128, 4, 128, (1, 64, 2, 1, 1, 66)),
+    (16, 128, 10, (2, 8, 1, 2, 2, 66))])
+def test_topk_plan_at_the_path_shapes(slots, b, m, k, want):
+    """Two blocks of 64 queries a unit at b = 128 (a slot a quarter-warp),
+    one block an SM; 8 ways a query at b = 8 and 64 at b = 1, so that
+    every quarter-warp of a block selects; a query of several chunks in a
+    slot a sub-strip."""
+    p = impact_bm25._topk_plan(262_144, b, m, k)
+    assert (p.units, p.group, p.qsplit, p.subs, p.ways, p.blocks) == want
+    # the wrapper's scratch: the blocks' top k and a threshold per query
+    assert b * (p.blocks * k + 1) * 8 < 16 << 20
+    rng = np.random.default_rng(slots)
+    qpack = impact_bm25.pack_query_terms(*_query_batch(rng, b, m, 3 * slots))
+    assert qpack[..., 3].max() < p.queries * p.terms
+
+
+def _query_batch(rng, b, m, vocab):
+    """Queries of 1 to m distinct terms of ``vocab``, groups of one."""
+    qterms = np.full((b, m), -1, np.int32)
+    idf = np.zeros((b, m), np.float32)
+    qgroup = np.full((b, m), -1, np.int32)
+    for q in range(b):
+        n = int(rng.integers(1, min(m, vocab) + 1))
+        qterms[q, :n] = rng.choice(vocab, n, replace=False)
+        idf[q, :n] = rng.uniform(0.1, 3.0, n)
+        qgroup[q, :n] = np.arange(n)
+    return qterms, idf, qgroup
 
 
 # ------------------------------------------------------------ the wrapper
