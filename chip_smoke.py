@@ -27,7 +27,8 @@ Phases (any failure exits non-zero and prints no result line):
      impact_bm25_scores (bit-equal to its plain version, and rtol
      IMPACT_RTOL on finite scores with the same -inf pattern; its bound
      reads sat only at the slots some query term asks for, and counts one
-     f32 product and sum per (query, doc, real query term) at 67 TFLOP/s;
+     f32 product at 67 TFLOP/s and one f64 sum at half that rate per
+     (query, doc, real query term);
      its plan printed: units of queries, chunks of terms, sub-strips of a
      strip, blocks a unit's items): on a
      block of 262,144 docs at (L = 8, b = 128, m = 4) OR and AND, the same
@@ -35,7 +36,9 @@ Phases (any failure exits non-zero and prints no result line):
      (L = 64, b = 128, m = 8), (L = 512, b = 8, m = 4), b = 1, and a block
      that ends in 1,000 pad docs; 300 more launches at (L = 8, b = 8) and
      (L = 8, b = 128) must repeat the first bit for bit; a block where every
-     doc has the same terms (every row of the output one value); batches
+     doc has the same terms (every row of the output one value); a block
+     whose docs hold one set of (idf, saturation) products at other query
+     positions (every score one value: the sum is in f64); batches
      whose vocabulary takes more than one unit: (L = 8, b = 128, m = 16,
      groups of two terms), four units, and (L = 64, b = 16, m = 128, 100
      real terms a query), two units of two chunks; the fused cosine shape at
@@ -45,14 +48,16 @@ Phases (any failure exits non-zero and prints no result line):
      largest k; its bound the function's work, whatever design runs it:
      one read of the layout (sat only at the slots some query term asks
      for, as for the scores), the query operands and the distance term plus
-     the [b, k] result at 3.35 TB/s, or one f32 product and sum per
-     (query, doc, real query term) at 67 TFLOP/s and one key compare per
-     (query, doc) at the int32 rate; beside it the first design's count, one
+     the [b, k] result at 3.35 TB/s, or one f32 product and one f64 sum
+     per (query, doc, real query term) at 67 and 33.5 TFLOP/s and one key
+     compare per (query, doc) at the int32 rate; beside it the first
+     design's count, one
      compare-select per (real doc slot, real query term), the pair it
      replaces, impact_bm25_scores and the tie-rule top-k, and its plan):
      at the same nine shapes, the serving shape 300 times over, a block
-     where every doc has the same terms, and AND queries with groups no
-     doc matches;
+     where every doc has the same terms, the block of one product set at
+     other query positions (the top k its lowest matched rows), and AND
+     queries with groups no doc matches;
      grouped_sums (bit-equal, beside one index_add_ into int32, the library
      call; one read of ids and value rows and one write of the sums at
      3.35 TB/s; each shape's placement and cluster size printed beside its
@@ -115,7 +120,14 @@ Phases (any failure exits non-zero and prints no result line):
      impact_bm25_scores launched once per block each, rows (and the text
      statement's scores) equal to the generic path (the fused statement's
      rows but where the generic ranking values of two ranks lie within
-     1e-6: the two paths round the fused value apart);
+     1e-6: the two paths round the fused value apart). Then queries of 6,
+     8, 11 and 14 of the 16 words (seed 18) at LIMIT 10 and 129, text and
+     fused, held the same way; a prepared AND ``match()`` batch with '',
+     '   ', '!!' (no row) and one two-word query, and '' alone, against the
+     generic path; a table of 20,000 of the texts in one block whose last
+     doc has 600 distinct words, so the CSR scorer DeviceBM25 serves it on
+     the card: a batch of 2-14 words, one alone and token-free AND texts,
+     rows and scores equal to the generic path;
   7. [hnsw]: first the port's build and search on the card against the same
      code on CPU tensors (5,000 integer rows with duplicates, and a corpus
      of equal rows: links and ids equal, so the card's sorts, minima and
@@ -223,6 +235,7 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12    # dense bf16 tensor-core peak, same source
 INT32_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x int32 lanes x boost clock
 F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores, data sheet
+F64_FLOPS_PER_S = F32_FLOPS_PER_S / 2   # f64 outside the tensor cores: half
 IMPACT_RTOL = 1e-6     # kernel vs plain: the same f32 operations in the same order
 BLOCK_ROWS = 262_144   # rows per block of the [match] deployment
 MATCH_ROWS = 1_000_000
@@ -258,6 +271,9 @@ MULTIHOST_GROUP_TIMEOUT = 300  # the workers' process group (each collective)
 MATCH_WORDS = ["weather", "news", "google", "maps", "cat", "videos", "python",
                "flights", "hotels", "music", "games", "sports", "stock",
                "market", "recipe", "travel"]
+MATCH_LONG_TERMS = (6, 8, 11, 14)   # [match]: words of the tie-heavy queries
+CSR_ROWS = 20_000      # [match]: the CSR table, one block at the size gate
+CSR_LONG_DOC = 600     # distinct words of its one doc past ImpactBM25.MAX_L
 
 
 def check(cond, msg):
@@ -523,8 +539,9 @@ def impact_bound(ops, dist, out_bytes=None):
     operands and the distance term plus one write of the output at the
     memory rate, or the operations of this run's data at their peak,
     whichever is larger. Of ``sat`` only the slots whose term some query
-    asks for, what this data needs; one f32 product and sum per (query,
-    doc, real query term). The output is impact_bm25_scores' [b, n_pad]
+    asks for, what this data needs; one f32 product and one f64 sum (at
+    the f64 rate) per (query, doc, real query term). The output is
+    impact_bm25_scores' [b, n_pad]
     f32 scores (``out_bytes`` None) or impact_bm25_topk's [b, k] result
     (``out_bytes``), which adds one u64 key compare per (query, doc) at
     the int32 instruction rate."""
@@ -536,7 +553,8 @@ def impact_bound(ops, dist, out_bytes=None):
         + (dist.numel() * 4 if dist is not None else 0)
     nbytes -= sat.numel() * 4 - 4 * int(
         torch.isin(term_ids, terms[terms >= 0]).sum())
-    t_ops = 2 * real_terms * n_pad / F32_FLOPS_PER_S * 1e3
+    t_ops = real_terms * n_pad * (1 / F32_FLOPS_PER_S
+                                  + 1 / F64_FLOPS_PER_S) * 1e3
     if out_bytes is None:
         out_bytes = qpack.shape[0] * n_pad * 4
     else:
@@ -682,7 +700,7 @@ def phase_impact_kernels(card):
     doc can match.
     Returns ({shape: scores result}, {shape: topk result})."""
     from databend_tpu_torch.ops.impact_bm25 import (
-        impact_bm25_scores, pack_query_terms)
+        impact_bm25_scores, impact_bm25_topk, pack_query_terms)
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     n = BLOCK_ROWS
     results, topk = {}, {}
@@ -749,6 +767,41 @@ def phase_impact_kernels(card):
     del tied
     hold_impact_topk(card, what, (term_ids, sat, qpack, need), None,
                      timed=False)
+    # docs whose (idf, saturation) products are one set at other query
+    # positions, {1, 3e-8, 3e-8}, and every fourth doc empty: every score 1
+    # + 2^-23 (an f32 sum in term order gives a third of them 1), the top k
+    # the lowest matched rows
+    kind = (torch.arange(n, device="cuda") % 4)[:, None]
+    term_ids = torch.full((n, 8), -2, dtype=torch.int32, device="cuda")
+    sat = torch.zeros((n, 8), device="cuda")
+    a_docs, b_docs = kind % 2 == 0, kind == 1
+    term_ids[:, :3] = torch.where(
+        a_docs, torch.tensor([10, 11, 12], dtype=torch.int32, device="cuda"),
+        torch.where(b_docs, torch.tensor([13, 14, 15], dtype=torch.int32,
+                                         device="cuda"), -2))
+    sat[:, :3] = torch.where(
+        a_docs, torch.tensor([0.5, 3e-8, 3e-8], device="cuda"),
+        torch.where(b_docs, torch.tensor([3e-8, 3e-8, 4.0], device="cuda"),
+                    0.0))
+    b = 8
+    qterms = torch.tensor([[10, 11, 12, 13, 14, 15, -1, -1]], dtype=torch.int32,
+                          device="cuda").expand(b, -1).contiguous()
+    idf = torch.tensor([[2.0, 1.0, 1.0, 1.0, 1.0, 0.25, 0.0, 0.0]],
+                       device="cuda").expand(b, -1).contiguous()
+    qgroup = torch.where(qterms >= 0, torch.arange(
+        8, dtype=torch.int32, device="cuda"), -1)
+    ops = (term_ids, sat, pack_query_terms(qterms, idf, qgroup),
+           torch.ones(b, device="cuda"))
+    what = f"equal product sets at other query positions n_pad={n} L=8 b={b}"
+    want = torch.where(kind[:, 0] == 3, -torch.inf, 1.0 + 2.0 ** -23)
+    check(same_bits(impact_bm25_scores(*ops), want.expand(b, n)),
+          f"{what}: a doc's score depends on its query positions")
+    hold_impact_kernel(card, what, ops, None)
+    hold_impact_topk(card, what, ops, None, timed=False)
+    rows = torch.nonzero(kind[:, 0] != 3)[:K, 0]
+    check(torch.equal(impact_bm25_topk(*ops, K)[1], rows.expand(b, -1)),
+          f"{what}: top k not the lowest matched rows")
+    del want, kind, a_docs, b_docs
     # AND with more groups than a query has terms: no doc of those matches
     ops, _ = impact_operands(g, n, n, 8, 128, 4, True)
     need = ops[3].clone()
@@ -1134,7 +1187,7 @@ def phase_match(card, profile):
     largest k."""
     import databend_tpu_torch as dt
     from databend_tpu_torch.expression import Column, DataBlock
-    from databend_tpu_torch.index.inverted.device import ImpactBM25
+    from databend_tpu_torch.index.inverted.device import DeviceBM25, ImpactBM25
     from databend_tpu_torch.ops.impact_bm25 import (
         MAX_K, impact_bm25_scores, impact_bm25_topk)
     from databend_tpu_torch.types import String, VectorType
@@ -1257,6 +1310,32 @@ def phase_match(card, profile):
                       f"ms); batch 0 equals the generic path at {checks} "
                       f"[{card}]")
 
+            def fused_as_generic(res, text, v, limit, what):
+                """Served fused rows against the generic statement's: the
+                same rows, but where the two paths round the fused value of
+                a near-tie apart, a row must sit within two ranks of its
+                generic rank at a generic value within 1e-6 of this rank's.
+                Returns the number of such ranks."""
+                want = ctx.sql(fused_sql.replace(
+                    "SELECT id FROM", "SELECT id, 0.04 * score() - "
+                    "cosine_distance(emb, {v}) FROM").replace(
+                        "LIMIT 10", f"LIMIT {limit}").format(
+                            t=f"'{text}'", v=vec(v))).rows()
+                got = [r[0] for r in res.rows()]
+                vals = [r[1] for r in want]
+                check(len(got) == len(want) == limit,
+                      f"{what}: {len(got)} rows, generic {len(want)}")
+                swaps = 0
+                for j, (g_row, (w_row, _)) in enumerate(zip(got, want)):
+                    if g_row == w_row:
+                        continue
+                    near = [k for k in range(max(0, j - 2), min(
+                        len(want), j + 3)) if want[k][0] == g_row]
+                    swaps += 1
+                    check(near and abs(vals[near[0]] - vals[j]) <= 1e-6,
+                          f"{what} rank {j}: row {g_row} != generic {w_row}")
+                return swaps
+
             def literal(ps_set):
                 if isinstance(ps_set, str):
                     return (text_sql.format(t=f"'{ps_set}'"),)
@@ -1345,35 +1424,120 @@ def phase_match(card, profile):
             check(fused_launches == n_blocks and impact_bm25_topk.launches
                   == 0, f"fused LIMIT {MAX_K + 1}: launches scores "
                   f"{fused_launches}, topk {impact_bm25_topk.launches}")
-            swaps = 0
-            for i in (0, 7):
-                # the generic path's ranking values beside its rows
-                want = ctx.sql(wide_fused.replace(
-                    "SELECT id FROM", "SELECT id, 0.04 * score() - "
-                    "cosine_distance(emb, {v}) FROM").format(
-                        t=f"'{pool[i]}'", v=vec(Q[i]))).rows()
-                got = [r[0] for r in wide[i].rows()]
-                vals = [r[1] for r in want]
-                check(len(got) == len(want) == MAX_K + 1,
-                      f"fused LIMIT {MAX_K + 1} [{i}]: {len(got)} rows")
-                for j, (g_row, (w_row, _)) in enumerate(zip(got, want)):
-                    if g_row == w_row:
-                        continue
-                    # two paths that round the fused value apart may order
-                    # a near-tie apart: the row must sit within 1e-6 of
-                    # this rank's value in the generic ranking
-                    near = [k for k in range(max(0, j - 2), min(
-                        len(want), j + 3)) if want[k][0] == g_row]
-                    swaps += 1
-                    check(near and abs(vals[near[0]] - vals[j]) <= 1e-6,
-                          f"fused LIMIT {MAX_K + 1} [{i}] rank {j}: row "
-                          f"{g_row} != generic {w_row}")
+            swaps = sum(fused_as_generic(wide[i], pool[i], Q[i], MAX_K + 1,
+                                         f"fused LIMIT {MAX_K + 1} [{i}]")
+                        for i in (0, 7))
             scores_launches += fused_launches
             print(f"[match] prepared fused 0.04*score() - cosine_distance "
                   f"LIMIT {MAX_K + 1} B=8: impact_bm25_scores launches "
                   f"{fused_launches} = {n_blocks} blocks x 1 batch, "
                   f"impact_bm25_topk 0; rows equal the generic path at "
                   f"(0, 7) but for {swaps} rank(s) of values within 1e-6 "
+                  f"[{card}]")
+
+            # queries of 6-14 words: docs whose words differ but whose
+            # (idf, saturation) products are the same set tie as on the
+            # generic path, and rank by ascending row
+            lrng = np.random.default_rng(MATCH_SEED + 1)
+            long_texts = [" ".join(lrng.choice(MATCH_WORDS, n, replace=False))
+                          for n in MATCH_LONG_TERMS]
+            impact_bm25_scores.launches = 0
+            impact_bm25_topk.launches = 0
+            long_swaps = 0
+            for ps_text, ps_fused, sql, limit in (
+                    (pm, pf, text_sql, K), (pw, pwf, wide_sql, MAX_K + 1)):
+                res = ps_text.execute_batch(long_texts)
+                for i, text in enumerate(long_texts):
+                    want = ctx.sql(sql.format(t=f"'{text}'")).rows()
+                    got = res[i].rows()
+                    check([r[0] for r in got] == [r[0] for r in want]
+                          and len(got) == limit and np.allclose(
+                              [r[1] for r in got], [r[1] for r in want],
+                              rtol=1e-4),
+                          f"{len(text.split())} words LIMIT {limit}: served "
+                          f"rows {[r[0] for r in got][:5]} differ from the "
+                          f"generic {[r[0] for r in want][:5]}")
+                res = ps_fused.execute_batch(
+                    [(t, list(map(float, q))) for t, q in zip(long_texts, Q)])
+                long_swaps += sum(fused_as_generic(
+                    res[i], text, Q[i], limit,
+                    f"fused {len(text.split())} words LIMIT {limit}")
+                    for i, text in enumerate(long_texts))
+            check(impact_bm25_topk.launches == 2 * n_blocks
+                  and impact_bm25_scores.launches == 2 * n_blocks,
+                  f"6-14 words: launches topk {impact_bm25_topk.launches}, "
+                  f"scores {impact_bm25_scores.launches}")
+            launches += impact_bm25_topk.launches
+            scores_launches += impact_bm25_scores.launches
+            print(f"[match] prepared match() and fused, B={len(long_texts)} "
+                  f"queries of {MATCH_LONG_TERMS} words at LIMIT {K} and "
+                  f"{MAX_K + 1}: text rows and scores equal the generic path,"
+                  f" fused rows but for {long_swaps} rank(s) of values within"
+                  f" 1e-6 [{card}]")
+
+            # AND with no token: no row, as on the generic path
+            and_sql = text_sql.replace("match(body, {t})",
+                                       "match(body, {t}, 'operator=AND')")
+            pa = ctx.prepare(and_sql.format(t="?"))
+            impact_bm25_topk.launches = 0
+            batch = ["", "   ", "!!", pool[0]]
+            res = list(pa.execute_batch(batch)) + [pa.execute("")]
+            check(pa._match is not None and pa._match._snap_id is not None,
+                  "AND: not served")
+            for text, r in zip(batch + [""], res):
+                want = ctx.sql(and_sql.format(t=f"'{text}'")).rows()
+                got = r.rows()
+                check([x[0] for x in got] == [x[0] for x in want]
+                      and len(got) == (K if text.strip("! ") else 0),
+                      f"AND {text!r}: served {len(got)} rows, generic "
+                      f"{len(want)}")
+            check(impact_bm25_topk.launches == 2 * n_blocks,
+                  f"AND: impact_bm25_topk launched "
+                  f"{impact_bm25_topk.launches} times")
+            launches += impact_bm25_topk.launches
+            print(f"[match] prepared match(.., 'operator=AND') B=4 with "
+                  f"'', '   ', '!!' and one AND of two words, then '' alone: "
+                  f"no row for the token-free texts, rows equal the generic "
+                  f"path [{card}]")
+
+            # a block holding a doc of more terms than ImpactBM25 takes:
+            # the CSR scorer DeviceBM25 serves it on the card
+            ctx.sql(f"CREATE TABLE lt (id BIGINT, body VARCHAR) "
+                    f"ROW_PER_BLOCK='{CSR_ROWS}'")
+            ctx.sql("CREATE INVERTED INDEX lt_i ON lt(body)")
+            ctx.insert_block("lt", DataBlock(["id", "body"], [
+                Column.from_numpy(np.arange(CSR_ROWS, dtype=np.int64)),
+                Column.from_pylist(texts[:CSR_ROWS - 1] + [" ".join(
+                    f"w{i}" for i in range(CSR_LONG_DOC))], String)]))
+            csr_sql = text_sql.replace("FROM hy", "FROM lt")
+            csr_and = and_sql.replace("FROM hy", "FROM lt")
+            pl, pla = (ctx.prepare(q.format(t="?")) for q in (csr_sql, csr_and))
+            csr_texts = pool[:4] + long_texts
+            t0 = time.perf_counter()
+            res = pl.execute_batch(csr_texts)
+            csr_s = time.perf_counter() - t0
+            sc = pl._match._scorers if pl._match is not None else []
+            check(len(sc) == 1 and isinstance(sc[0], DeviceBM25)
+                  and sc[0]._doc_ids.is_cuda,
+                  f"lt: not served by DeviceBM25 on the card ({sc})")
+            res = list(res) + [pl.execute(long_texts[-1])] + list(
+                pla.execute_batch(["", "!!", pool[0]]))
+            for text, sql, r in zip(
+                    csr_texts + [long_texts[-1], "", "!!", pool[0]],
+                    [csr_sql] * (len(csr_texts) + 1) + [csr_and] * 3, res):
+                want = ctx.sql(sql.format(t=f"'{text}'")).rows()
+                got = r.rows()
+                check([x[0] for x in got] == [x[0] for x in want]
+                      and len(got) == (K if text.strip("! ") else 0)
+                      and np.allclose([x[1] for x in got],
+                                      [x[1] for x in want], rtol=1e-4),
+                      f"lt {text!r}: served rows {[x[0] for x in got][:5]} "
+                      f"differ from the generic {[x[0] for x in want][:5]}")
+            print(f"[match] DeviceBM25 on a {CSR_ROWS}-row block holding a "
+                  f"doc of {CSR_LONG_DOC} words: prepared match() B="
+                  f"{len(csr_texts)} of 2-14 words {csr_s * 1e3:.1f} ms "
+                  f"(first call, builds the CSR state), single, and AND with "
+                  f"'', '!!': rows and scores equal the generic path "
                   f"[{card}]")
 
             for what, sql in (("match()", text_sql.format(t="'{t}'")),

@@ -13,20 +13,24 @@
 //   terms), idf, group (pad -1), vocabulary row (below)}, need [b] f32,
 //   optionally dist [b, n_pad] f32 with w_s, w_d
 //   -> out [b, n_pad] f32,
-//   score(q, d) = sum over j = 0..m-1, in that order, of
+//   score(q, d) = f32(sum over j = 0..m-1, in f64, of the f32 products
 //                 idf[q, j] * sat[d, s]  for the slot s with
 //                 term_ids[d, s] == term[q, j]  (at most one: the layout
-//                 writes each posting of a doc into one slot),
+//                 writes each posting of a doc into one slot)),
 //   out[q, d]   = score, or w_s * score + w_d * dist[q, d] when dist is given,
 //                 if the number of matched groups >= need[q], else -inf.
 //   The terms of a group are adjacent along j, so the matched groups are the
 //   runs of equal group ids with at least one matching term: no bit mask,
 //   and no limit on the number of groups.
-// Products and sums are single f32 operations (no fused multiply-add), in
-// term order, as in the plain PyTorch version: the kernel's output is
-// bit-equal to it, and docs with equal terms and saturations get equal
-// scores (the tie rule of the top-k after this kernel needs that). Tensor
-// cores are out: a TF32 or bf16 product changes the bits.
+// Each product is one f32 multiply (no fused multiply-add), widened to f64
+// and added in f64; the sum is rounded to f32 once, after the last term and
+// before the fused combination, as in the plain PyTorch version: the
+// kernel's output is bit-equal to it. An f32 product has 24 significant
+// bits, so the f64 sum of a query's products is exact, the same in any
+// order, while they span less than 2^(29 - log2 m): docs with equal sets of
+// products get equal scores whatever query positions they match, as on the
+// host's f64 BM25 (the tie rule of the top-k after this kernel needs that).
+// Tensor cores are out: a TF32 or bf16 product changes the bits.
 //
 // impact_bm25_topk_launch computes the same scores and, in the same pass, the
 // k largest per query: the whole of those two programs, their final
@@ -37,8 +41,9 @@
 //
 // Bound of impact_bm25_scores. Its bytes are one read of term_ids, of the
 // saturations the query terms ask for (and of dist when fused) and one
-// write of the [b, n_pad] block; its operations one f32 product and one sum
-// per (query, doc, real query term). Bytes bind at every shape of the path:
+// write of the [b, n_pad] block; its operations one f32 product and one f64
+// sum per (query, doc, real query term), the sum at the f64 rate, half the
+// f32 one. Bytes bind at every shape of the path:
 // at n_pad = 262,144, L = 8, b = 128, m = 4 the write does (146 MB, 0.044
 // ms at 3.35 TB/s); at b = 8 the read and the write (19 MB, 0.0056 ms); at
 // L = 512, b = 8 the read of the ids (0.55 GB, 0.16 ms).
@@ -97,8 +102,8 @@
 // runs it (chip_smoke.impact_bound, the same count as the scores kernel's
 // but for the output): its bytes are one read of term_ids, of the
 // saturations the query terms ask for (and of dist when fused) and the
-// [b, k] result; its operations one f32 product and one sum per (query,
-// doc, real query term) and one key compare per (query, doc). At the
+// [b, k] result; its operations one f32 product and one f64 sum per
+// (query, doc, real query term) and one key compare per (query, doc). At the
 // serving shape the operations bind; fused, and at L = 512, the reads do.
 // (The first design was counted by its own work, one compare-select per
 // (real doc slot, real query term); chip_smoke.py prints that count
@@ -429,13 +434,14 @@ __device__ __forceinline__ void walk_strips(
 
 // One item's terms of the current chunk: a quarter-warp, four docs a lane
 // (the cells at `cell`), the query's staged entries at `qe`. Adds into the
-// lane's score, matched groups and open-run hit per doc. Past its count an
-// item reads its staged pads: the NaN row and idf +0.0, which leave score
-// and groups as they are. `single`: every group of the warp's queries is
-// one term, so a hit is a matched group (uniform across the warp).
+// lane's score (the f32 product, in f64), matched groups and open-run hit
+// per doc. Past its count an item reads its staged pads: the NaN row and
+// idf +0.0, which leave score and groups as they are. `single`: every group
+// of the warp's queries is one term, so a hit is a matched group (uniform
+// across the warp).
 __device__ __forceinline__ void score_item(const int2* qe, const char* cell,
                                            int n_terms, bool single,
-                                           float (&sc)[4], int (&gr)[4],
+                                           double (&sc)[4], int (&gr)[4],
                                            int (&rh)[4]) {
   if (single) {
 #pragma unroll 2
@@ -447,7 +453,8 @@ __device__ __forceinline__ void score_item(const int2* qe, const char* cell,
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const bool hit = xv[k] == xv[k];
-        sc[k] = __fadd_rn(sc[k], __fmul_rn(idf, hit ? xv[k] : 0.f));
+        sc[k] = __dadd_rn(
+            sc[k], static_cast<double>(__fmul_rn(idf, hit ? xv[k] : 0.f)));
         gr[k] += hit ? 1 : 0;
       }
     }
@@ -466,7 +473,8 @@ __device__ __forceinline__ void score_item(const int2* qe, const char* cell,
           gr[k] += rh[k];
           rh[k] = 0;
         }
-        sc[k] = __fadd_rn(sc[k], __fmul_rn(idf, hit ? xv[k] : 0.f));
+        sc[k] = __dadd_rn(
+            sc[k], static_cast<double>(__fmul_rn(idf, hit ? xv[k] : 0.f)));
         rh[k] |= hit ? 1 : 0;
       }
     }
@@ -489,10 +497,10 @@ __device__ __forceinline__ float4 load_dist4(const float* dp, long long d,
   return dv;
 }
 
-// The ranked values of a lane's four docs: the score, or the fused
-// combination, masked to -inf below `nd` matched groups (last: the weights
-// may be negative, -inf is never multiplied).
-__device__ __forceinline__ void ranked4(const float (&sc)[4],
+// The ranked values of a lane's four docs: the score rounded to f32 once,
+// or the fused combination of it, masked to -inf below `nd` matched groups
+// (last: the weights may be negative, -inf is never multiplied).
+__device__ __forceinline__ void ranked4(const double (&sc)[4],
                                         const int (&gr)[4],
                                         const int (&rh)[4], float nd,
                                         bool fused, float4 dv, float w_s,
@@ -501,8 +509,8 @@ __device__ __forceinline__ void ranked4(const float (&sc)[4],
   const float dd[4] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    float val = sc[k];
-    if (fused) val = __fadd_rn(__fmul_rn(w_s, sc[k]), __fmul_rn(w_d, dd[k]));
+    float val = __double2float_rn(sc[k]);
+    if (fused) val = __fadd_rn(__fmul_rn(w_s, val), __fmul_rn(w_d, dd[k]));
     o[k] = static_cast<float>(gr[k] + rh[k]) >= nd ? val : ninf;
   }
 }
@@ -526,7 +534,7 @@ scores_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
   const int qstep = gridDim.z * SW;
   // a lane's four docs of its item, carried across chunks (then a warp
   // has one quad)
-  float sc[4];
+  double sc[4];
   int gr[4], rh[4];
   walk_strips<4>(smem, term_ids, sat, qpack, need, n_pad, L, b, m, gq, mc,
                  subs0, [&](const Walk& w) {
@@ -548,7 +556,7 @@ scores_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
       if (w.c == 0) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          sc[k] = 0.f;
+          sc[k] = 0.0;
           gr[k] = 0;
           rh[k] = 0;
         }
@@ -726,7 +734,7 @@ topk_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
   // the query's k-th key in some block's slot: no key below it is among
   // the query's k largest
   u64* q_thr = shared_thr + q0 + ql;
-  float sc[4];
+  double sc[4];
   int gr[4], rh[4];
   // one block an SM: more row loads in flight a thread (L = 512: the
   // fill holds the walk)
@@ -747,7 +755,7 @@ topk_kernel(const int* __restrict__ term_ids, const float* __restrict__ sat,
       if (w.c == 0) {
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          sc[kk] = 0.f;
+          sc[kk] = 0.0;
           gr[kk] = 0;
           rh[kk] = 0;
         }

@@ -12,7 +12,12 @@ on the card, uploaded once per block like the vector columns, in two layouts:
   ``index_add_`` into the dense score vector, the top-k programs by sorting
   the (doc, group, contribution) triples and reducing runs with a segmented
   Hillis-Steele scan. Shapes are bucketed as in the reference (term count and
-  posting length), which bounds the padding work.
+  posting length), which bounds the padding work. The f32 contributions add
+  in f64 and the sum rounds to f32 once: exact, so neither the order of the
+  card's atomic adds nor the scan's tree nor the query positions a doc
+  matches changes its bits (``ops.impact_bm25`` says when the sum is exact),
+  where the reference adds in f32. The prepared ``match()`` server serves a
+  block through it where ``ImpactBM25`` declines the block.
 * ``ImpactBM25``: the dense doc-major layout for batched serving. Scoring
   and the top-k per query are one hand-written kernel,
   ``ops.impact_bm25.impact_bm25_topk`` (its plain version on CPU tensors):
@@ -98,13 +103,15 @@ def _bm25_program(doc_ids_full, tfs_full, doc_len, starts, lens, idf, gid,
                   avgdl: float, l: int, g: int, n_docs: int):
     """Dense per-doc scores and per-doc count of matched groups. The two
     ``segment_sum``s of the reference are ``index_add_``s: atomic adds on the
-    card, so the f32 sum order is not fixed from run to run. Held to the
-    reference's own tolerance (rtol 1e-4, tests/test_bm25_device.py)."""
+    card, in an order that changes from run to run; the scores add in f64,
+    where that order does not change the sum, and round to f32 once. Held to
+    the reference's own tolerance (rtol 1e-4, tests/test_bm25_device.py)."""
     doc_ids, valid, elem = _posting_terms(
         doc_ids_full, tfs_full, doc_len, starts, lens, idf, gid >= 0, avgdl, l)
     flat_ids = torch.where(valid, doc_ids, n_docs)          # pad bucket
-    scores = torch.zeros(n_docs + 1, dtype=torch.float32, device=elem.device)
-    scores.index_add_(0, flat_ids.reshape(-1), elem.reshape(-1))
+    scores = torch.zeros(n_docs + 1, dtype=torch.float64, device=elem.device)
+    scores.index_add_(0, flat_ids.reshape(-1),
+                      elem.reshape(-1).to(torch.float64))
     # per-group distinct-match count (AND semantics)
     safe_gid = torch.where(gid >= 0, gid, 0).to(torch.int64)
     cid = safe_gid[:, None] * (n_docs + 1) + flat_ids        # [T, L]
@@ -112,7 +119,7 @@ def _bm25_program(doc_ids_full, tfs_full, doc_len, starts, lens, idf, gid,
                        device=elem.device)
     ghit.index_add_(0, cid.reshape(-1), valid.reshape(-1).to(torch.float32))
     matched = (ghit.reshape(g, n_docs + 1)[:, :n_docs] > 0).sum(0)
-    return scores[:n_docs], matched.to(torch.int32)
+    return scores[:n_docs].to(torch.float32), matched.to(torch.int32)
 
 
 def _reduce_runs(key_s, same_doc_of, el_s, t: int):
@@ -120,17 +127,18 @@ def _reduce_runs(key_s, same_doc_of, el_s, t: int):
     the (doc, group) boundary flags, by a segmented Hillis-Steele scan: runs
     of one doc are contiguous and at most ``t`` long after the sort.
     ``same_doc_of(shift)`` says which entries share their doc with the entry
-    ``shift`` places before them. -> (total, distinct groups) per entry."""
+    ``shift`` places before them. -> (total, distinct groups) per entry; the
+    totals add in f64 and round to f32 once."""
     cnt = torch.ones_like(el_s)
     cnt[1:] = (key_s[1:] != key_s[:-1]).to(el_s.dtype)
-    total = el_s
+    total = el_s.to(torch.float64)
     shift = 1
     while shift < t:
         same = same_doc_of(shift)
         total = total + torch.where(same, _shift(total, shift), 0.0)
         cnt = cnt + torch.where(same, _shift(cnt, shift), 0.0)
         shift <<= 1
-    return total, cnt
+    return total.to(torch.float32), cnt
 
 
 def _same_as_before(ids_s: torch.Tensor, shift: int) -> torch.Tensor:
@@ -292,29 +300,29 @@ class DeviceBM25:
         ok = vals > -np.inf
         return rows[ok].astype(np.int64), vals[ok].astype(np.float32)
 
-    def top_k_batch(self, queries: List[List[List[int]]], k: int,
-                    operator: str = "OR"
-                    ) -> List[Tuple[np.ndarray, np.ndarray]]:
-        """Top-k for a BATCH of queries in one device program (one sort
-        serves all of them). ``queries[b]`` is that query's term_groups.
-        Returns [(rows, scores)] per query, same contract as top_k."""
+    def dispatch_top_k_batch(self, queries: List[List[List[int]]], k: int,
+                             operator: str = "OR"):
+        """Queue the top-k of a BATCH of queries (one device program, one
+        sort serves all of them) WITHOUT syncing; returns an opaque handle
+        for :meth:`collect`, as ``ImpactBM25`` does. ``queries[b]`` is that
+        query's term_groups. Under AND a query with no groups, or with a
+        group of no known term, matches no doc."""
         flat = []   # (term, query, global_group)
         need = []
         gbase = 0
-        present = []
+        drop = []
+        and_mode = operator.upper() == "AND"
         for qi, tg in enumerate(queries):
             terms = [(tid, qi, gbase + gi) for gi, group in enumerate(tg)
                      for tid in group if tid >= 0]
             flat.extend(terms)
             n_present = len({g for _, _, g in terms})
-            present.append(n_present)
-            need.append(float(n_present) if operator.upper() == "AND"
-                        else 1.0)
+            need.append(float(n_present) if and_mode else 1.0)
+            drop.append(and_mode and (not tg or n_present < len(tg)))
             gbase += len(tg)
-        bq = len(queries)
-        empty = (np.zeros(0, np.int64), np.zeros(0, np.float32))
         if not flat:
-            return [empty] * bq
+            return None, drop
+        bq = len(queries)
         t_b, l_b, starts, lens, idf, qid = self._pack_terms(
             [(tid, qi) for tid, qi, _ in flat])
         b_b = _bucket(bq, lo=2)
@@ -322,19 +330,35 @@ class DeviceBM25:
         qgid[:len(flat)] = [gg for _, _, gg in flat]
         need_arr = np.ones(b_b, np.float32)
         need_arr[:bq] = need
-        vals, ids = _fetch_pair(*_bm25_batch_topk_program(
+        dev = _bm25_batch_topk_program(
             self._doc_ids, self._tfs, self._doc_len,
             *_upload(starts, lens, idf, qid, qgid, need_arr), self._avgdl(),
-            t_b, l_b, self.n_docs, min(k, self.n_docs), b_b, max(gbase, 1)))
+            t_b, l_b, self.n_docs, min(k, self.n_docs), b_b, max(gbase, 1))
+        return dev, drop
+
+    def collect(self, handle) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """[(rows, scores)] per query of a :meth:`dispatch_top_k_batch`."""
+        dev, drop = handle
+        empty = (np.zeros(0, np.int64), np.zeros(0, np.float32))
+        if dev is None:
+            return [empty] * len(drop)
+        vals, ids = _fetch_pair(*dev)
         out = []
-        for qi, tg in enumerate(queries):
-            if operator.upper() == "AND" and present[qi] < len(tg):
+        for qi, dropped in enumerate(drop):
+            if dropped:
                 out.append(empty)
                 continue
             ok = vals[qi] > -np.inf
             out.append((ids[qi][ok].astype(np.int64),
                         vals[qi][ok].astype(np.float32)))
         return out
+
+    def top_k_batch(self, queries: List[List[List[int]]], k: int,
+                    operator: str = "OR"
+                    ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Top-k for a BATCH of queries in one device program. Returns
+        [(rows, scores)] per query, same contract as top_k."""
+        return self.collect(self.dispatch_top_k_batch(queries, k, operator))
 
     def _dispatch_topk(self, term_groups, k: int, operator: str = "OR"):
         """Queue the device top-k without syncing; returns the device
@@ -449,7 +473,8 @@ class ImpactBM25:
             present = len({gi for _, gi in terms})
             if operator.upper() == "AND":
                 need[qi] = float(len(q))
-                drop[qi] = present < len(q)  # a group had no known terms
+                # no groups, or a group had no known terms: no doc matches
+                drop[qi] = not q or present < len(q)
             else:
                 need[qi] = 1.0
         return qterms, idf, qgroup, need, drop, b, m, g

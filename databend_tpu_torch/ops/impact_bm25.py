@@ -8,11 +8,21 @@ reduces it twice; XLA fuses that. ``impact_bm25_scores`` computes the same
 
 For doc ``d`` and query ``q``::
 
-    score = sum over terms j = 0..m-1, in that order, in f32, of
-            idf[q, j] * sat[d, s]   where term_ids[d, s] == qterms[q, j]
+    score = f32(sum over terms j = 0..m-1, in f64, of the f32 products
+                idf[q, j] * sat[d, s]   where term_ids[d, s] == qterms[q, j])
     out[q, d] = score                       if matched groups >= need[q]
                 w_s * score + w_d * dist[q, d]   (when ``dist`` is given)
                 -inf                        otherwise
+
+A doc's score is a function of the set of its products, not of the query
+positions they come from: an f32 product is an f64 value of 24 significant
+bits, so the f64 sum of a query's products is exact, and the same in any
+order, while the largest is less than ``2 ** (29 - log2(m))`` times the
+smallest (beyond that the orders can differ in the last f64 bit, which the
+one rounding to f32 keeps only at an f32 rounding boundary). Two docs whose
+terms differ but whose (idf, sat) products are the same set tie, as they do
+on the host's f64 BM25 (``index/inverted/reader.py``), and rank by
+ascending row.
 
 The query batch travels as ``qpack [b, m, 4]`` int32, one 16-byte entry
 ``{term id, idf (f32 bits), group id, vocabulary row}`` per query term
@@ -38,10 +48,12 @@ On a CUDA tensor ``impact_bm25_scores`` launches the hand-written kernel
 ``csrc/impact_bm25_scores.cu`` or raises; on a CPU tensor it runs the plain
 PyTorch version ``_impact_bm25_scores_plain``: the reference's composition,
 one term column at a time and tiled over docs so that no intermediate passes
-``PLAIN_BYTES``. Both add the terms in index order without fused
-multiply-adds: the kernel's output is bit-equal to the plain version's, and
-docs with equal terms and saturations get equal scores (the tie rule of the
-top-k after it depends on that).
+``PLAIN_BYTES``. Both round each product to f32, add the products in f64 and
+round the sum to f32 once, without fused multiply-adds: the kernel's output
+is bit-equal to the plain version's, and docs with equal sets of products
+get equal scores (the tie rule of the top-k after it depends on that). The
+reference's programs add in f32 through ``einsum``; this is a deliberate
+difference (their tie order depends on the query positions).
 
 ``impact_bm25_topk`` is the function the serving path calls: the same scores
 and their ``k`` largest per query, in ``jax.lax.top_k``'s order
@@ -304,7 +316,8 @@ def _impact_bm25_scores_plain(term_ids: torch.Tensor, sat: torch.Tensor,
                               w_d: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version (see the module doc): per doc tile and term
     column ``j`` one ``[tile, L, b]`` compare-select, summed over the slots
-    (at most one is non-zero, so that sum is exact)."""
+    (at most one is non-zero, so that sum is exact); the f32 products add
+    in f64, rounded to f32 once."""
     n_pad, slots = term_ids.shape
     b, m = qpack.shape[:2]
     dev = term_ids.device
@@ -319,18 +332,19 @@ def _impact_bm25_scores_plain(term_ids: torch.Tensor, sat: torch.Tensor,
         ids = term_ids[s:s + tile, :, None]                   # [t, L, 1]
         st = sat[s:s + tile, :, None]
         t = ids.shape[0]
-        score = torch.zeros((t, b), dtype=torch.float32, device=dev)
+        score = torch.zeros((t, b), dtype=torch.float64, device=dev)
         groups = torch.zeros((t, b), dtype=torch.int32, device=dev)
         run_hit = torch.zeros((t, b), dtype=torch.bool, device=dev)
         for j in range(m):
             eq = ids == qterms[:, j]                          # [t, L, b]
             per_term = torch.where(eq, st, zero).sum(1)       # [t, b]
-            score = score + per_term * idf[:, j]
+            score = score + (per_term * idf[:, j]).to(torch.float64)
             # a new group starts at j: close the run before it
             groups = groups + (run_hit & new_run[:, j])
             run_hit = (run_hit & ~new_run[:, j]) | eq.any(1)
         groups = groups + run_hit
         ok = groups.to(torch.float32) >= need
+        score = score.to(torch.float32)
         if dist is not None:
             score = w_s * score + w_d * dist[:, s:s + tile].T
         out[:, s:s + tile] = torch.where(ok, score, NEG_INF).T

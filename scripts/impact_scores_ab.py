@@ -20,9 +20,10 @@ wrapper from the host, and printed on an ``[ab]`` line beside its bound,
 that of ``chip_smoke.impact_bound``: one read of the layout, the query
 operands and the distance term and one write of the output at 3.35 TB/s
 (``sat`` only at the slots some query term asks for), or
-one f32 product and sum per (query, doc, real query term) at 67 TFLOP/s
-and, for the selection, one key compare per (query, doc) at the int32
-rate, whichever is larger: the function's work, whatever design runs it.
+one f32 product at 67 TFLOP/s and one f64 sum at half that rate per
+(query, doc, real query term) and, for the selection, one key compare per
+(query, doc) at the int32 rate, whichever is larger: the function's work,
+whatever design runs it.
 The pair the selecting kernel replaced (``impact_bm25_scores``, then
 ``topk_largest_lowest_index``) is timed the same ways at k = 10.
 Give the roots as A, B, B, A to compare two trees on one card. Exits
@@ -144,7 +145,8 @@ for name, n_docs, slots, b, m, and_mode, metric in shapes:
     # the function needs sat only where some query asks for the slot's term
     read -= ops[1].numel() * 4 - 4 * int(
         torch.isin(ops[0], terms[terms >= 0]).sum())
-    products = 2 * int((terms >= 0).sum()) * N / 67e12 * 1e3
+    # one f32 product and one f64 sum, at half the f32 rate, a term
+    products = int((terms >= 0).sum()) * N * (1 / 67e12 + 2 / 67e12) * 1e3
     for entry, moved, t_ops, fn in (
             ("impact_bm25_scores", read + b * N * 4, products,
              lambda: ib.impact_bm25_scores(*ops, dist, w_s, w_d)),

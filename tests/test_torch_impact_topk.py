@@ -7,12 +7,17 @@ included. On CPU tensors it runs its plain version, the plain scores and
 ``topk_largest_lowest_index``; the CUDA kernel beside it is held to that
 plain version on the card by ``chip_smoke.py``.
 
-Tolerances. Ids are compared exactly. The port adds the products of a doc's
-terms in term order without fused multiply-adds, so its values are held
-bit-equal to the same formula in numpy; XLA's CPU dot in the reference's
-einsum fuses them, so against the JAX programs values agree to rtol 1e-6
-(text) and, where the distance product is summed in another order, to rtol
-1e-5 and atol 1e-6 (fused).
+Tolerances. The port rounds each product of a doc's terms to f32 and adds
+them in f64 without fused multiply-adds, so its values are held bit-equal
+to the same formula in numpy; the reference's einsum adds in f32 in term
+order (XLA's CPU dot fuses the multiply-adds), so against the JAX programs
+values agree to rtol 1e-6 (text) and, where the distance product is summed
+in another order, to rtol 1e-5 and atol 1e-6 (fused). Ids follow ROADMAP's
+Parity rule for tied input: they equal a numpy tie-rule truth (the port's
+formula for text, every value in f64 for fused) at every rank, and the JAX
+program's ids at every rank whose value is more than one f32 ulp from its
+neighbours' (two f32 sums of the same products may round a near-tie
+apart, and no selection repairs that).
 """
 
 import numpy as np
@@ -85,29 +90,49 @@ def _tensors(term_ids, sat, qterms, idf, qgroup, need):
         need)]
 
 
-def _numpy_topk(term_ids, sat, qterms, idf, qgroup, need, k):
-    """The formula doc by doc in numpy f32 (one rounding per product and
-    per sum, terms in order), then lax.top_k's order by a lexsort."""
+def _numpy_scores(term_ids, sat, qterms, idf, qgroup, need, exact=False):
+    """``[b, N_PAD]``: the formula doc by doc in numpy, -inf below ``need``
+    matched groups. The port's: one f32 rounding per product, the products
+    summed in f64 and rounded to f32 once; ``exact``: f64 products and
+    sum, not rounded."""
     b = qterms.shape[0]
-    vals = np.zeros((b, k), np.float32)
-    ids = np.zeros((b, k), np.int64)
+    out = np.zeros((b, N_PAD), np.float64 if exact else np.float32)
     for q in range(b):
-        score = np.zeros(N_PAD, np.float32)
+        score = np.zeros(N_PAD, np.float64)
         hit = np.zeros((N_PAD, qterms.shape[1]), bool)
         for j in range(qterms.shape[1]):
             if qterms[q, j] < 0:
                 break
             eq = term_ids == qterms[q, j]
             st = np.where(eq, sat, np.float32(0)).sum(1, dtype=np.float32)
-            score = (score + st * idf[q, j]).astype(np.float32)
+            if exact:
+                score = score + st.astype(np.float64) * float(idf[q, j])
+            else:
+                score = score + (st * idf[q, j]).astype(np.float64)
             hit[:, j] = eq.any(1)
         groups = np.zeros(N_PAD, np.int32)
         for grp in set(qgroup[q][qgroup[q] >= 0].tolist()):
             groups += hit[:, qgroup[q] == grp].any(1)
-        score = np.where(groups >= need[q], score, np.float32(-np.inf))
-        order = np.lexsort((np.arange(N_PAD), -score))[:k]
-        vals[q], ids[q] = score[order], order
-    return vals, ids
+        out[q] = np.where(groups >= need[q], score, -np.inf)
+    return out
+
+
+def _tie_rule(values, k):
+    """lax.top_k's order on ``values [b, n]`` (descending, equal values by
+    ascending row) -> (ids [b, k], lone [b, k]): ``lone`` where the value
+    is more than one f32 ulp from the values of the ranks beside it in the
+    whole ranking (the two packages' sums may round such a pair apart)."""
+    ids = np.stack([np.lexsort((np.arange(len(row)), -row))
+                    for row in values])
+    ranked = np.take_along_axis(values, ids, 1).astype(np.float64)
+    ulp = np.spacing(np.abs(ranked).astype(np.float32)).astype(np.float64)
+    with np.errstate(invalid="ignore"):
+        gap = np.abs(np.diff(ranked, axis=1))
+        close = ~(gap > np.maximum(ulp[:, :-1], ulp[:, 1:]))   # -inf: close
+    near = np.zeros(ranked.shape, bool)
+    near[:, :-1] |= close
+    near[:, 1:] |= close
+    return ids[:, :k], ~near[:, :k]
 
 
 CASES = {                     # (n_docs, tie)
@@ -130,13 +155,17 @@ def test_plain_topk_matches_the_jax_program(case, k):
     ops = _tensors(term_ids, sat, qterms, idf, qgroup, need)
     gv, gi = impact_bm25._impact_bm25_topk_plain(*ops, k)
     assert gv.dtype == torch.float32 and gi.dtype == torch.int64
-    np.testing.assert_array_equal(gi.numpy(), wi.astype(np.int64))
     fin = np.isfinite(wv)
     assert np.array_equal(np.isfinite(gv.numpy()), fin)
     np.testing.assert_allclose(gv.numpy()[fin], wv[fin], rtol=1e-6, atol=0)
-    nv, ni = _numpy_topk(term_ids, sat, qterms, idf, qgroup, need, k)
+    dense = _numpy_scores(term_ids, sat, qterms, idf, qgroup, need)
+    ni, lone = _tie_rule(dense, k)
     np.testing.assert_array_equal(gi.numpy(), ni)
-    assert gv.numpy().tobytes() == nv.tobytes()
+    assert gv.numpy().tobytes() == np.take_along_axis(dense, ni, 1).tobytes()
+    if tie:       # each package ties every doc: the ids agree at every rank
+        lone[:] = True
+    assert lone.any()
+    np.testing.assert_array_equal(gi.numpy()[lone], wi[lone])
     assert np.isinf(gv.numpy()[0]).all()             # the all-pad query
     if k > 3:                                        # fewer than k
         assert np.isfinite(gv.numpy()[1]).sum() == (0 if tie else 3)
@@ -171,11 +200,31 @@ def test_plain_fused_topk_matches_the_jax_program(metric, sign):
                                  metric)
     gv, gi = impact_bm25._impact_bm25_topk_plain(
         *ops, k, dist, float(w_s), float(w_d))
-    np.testing.assert_array_equal(gi.numpy(), wi.astype(np.int64))
     fin = np.isfinite(wv)
     assert np.array_equal(np.isfinite(gv.numpy()), fin)
-    np.testing.assert_allclose(gv.numpy()[fin], wv[fin], rtol=1e-5,
-                               atol=1e-6)
+    d64 = _distance_f64(emb, Q, metric)
+    np.testing.assert_allclose(
+        gv.numpy()[fin], wv[fin], rtol=1e-5, atol=1e-6,
+        err_msg="the port's distances off f64 by at most, per query: "
+        f"{np.abs(dist.numpy() - d64).max(1)}")
+    bm25 = _numpy_scores(term_ids, sat, qterms, idf, qgroup, need, exact=True)
+    with np.errstate(invalid="ignore"):    # -inf * a negative weight
+        truth = np.where(np.isfinite(bm25),
+                         float(w_s) * bm25 + float(w_d) * d64, -np.inf)
+    ni, lone = _tie_rule(truth, k)
+    np.testing.assert_array_equal(gi.numpy(), ni)
+    assert lone.any()
+    np.testing.assert_array_equal(gi.numpy()[lone], wi[lone])
+
+
+def _distance_f64(emb, Q, metric):
+    """``[b, n]`` distances in f64 (cosine: ``emb`` rows pre-normalized)."""
+    e, q = emb.astype(np.float64), Q.astype(np.float64)
+    if metric == "cosine":
+        return 1.0 - (q / np.linalg.norm(q, axis=1, keepdims=True)) @ e.T
+    if metric == "l2":
+        return np.sqrt(((q[:, None, :] - e[None, :, :]) ** 2).sum(-1))
+    return -(q @ e.T)
 
 
 # ----------------------------------------------- the kernel's selection

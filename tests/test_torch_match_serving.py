@@ -51,10 +51,12 @@ def _drain_span_rings():
     ttracing.RECORDER.drain()
 
 
-def _rows(n, seed):
+def _rows(n, seed, words=WORDS, counts=(2, 6)):
+    """``n`` texts of ``counts[0]`` to ``counts[1] - 1`` of ``words`` and
+    unit-norm embeddings, from ``seed``."""
     rng = np.random.default_rng(seed)
-    texts = [" ".join(np.array(WORDS)[rng.integers(0, len(WORDS),
-                                                   rng.integers(2, 6))])
+    texts = [" ".join(np.array(words)[rng.integers(0, len(words),
+                                                   rng.integers(*counts))])
              for _ in range(n)]
     emb = rng.standard_normal((n, D)).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
