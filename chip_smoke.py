@@ -68,21 +68,36 @@ Phases (any failure exits non-zero and prints no result line):
      the first shape spread over a cluster, 65 value rows (two launches),
      every row in one group; after [agg], on the inputs each [agg]
      statement gave it (the route's list of rows);
+     exact_topk_select ([exact]: ids equal and values bit-equal to its
+     plain version, the masked finish_distance and the tie-rule top-k; its
+     bound one read of the product block, the norms and the mask and the
+     [b, k] result at 3.35 TB/s, beside torch.topk over the finished
+     distances, the library yardstick without the tie rule): the serving
+     chunk (b = 256 against 1M x 128 SIFT-valued rows, k = 10) under l2,
+     cosine and ip, EXACT_REPEATS launches each that must repeat the first
+     bits; l2 at k = 1, 128 and 129 (the composition's route, no launch), a
+     mask a query, one mask row for every query, n_valid < N, a ragged
+     N of unaligned rows; the [ties] blocks (l2, and cosine with a zero
+     query); [mesh]'s chunk (b = 8 against 131,072 rows of 96); the HNSW
+     build's batch (b = 1,024 against 65,536 rows, k = 101, bf16 product);
   4. [ties]: exact KNN on tied distances (integer rows in [0, 3], 262,144 x
      128 under l2; rows of a power-of-two norm, 262,144 x 8 under cosine,
      and a zero query: distances exact in f32): 8 literal statements,
      execute_batch at B = 256, execute_batch_block at B = 300 and a
      filtered batch, each query's ids equal to the reference's tie rule
      (ascending distance, equal distances by ascending row id) computed in
-     numpy; ``ops.topk.topk_smallest_lowest_index`` on the card equal to
+     numpy, and exact_topk_select launched once a statement and a query
+     chunk; ``ops.topk.topk_smallest_lowest_index`` on the card equal to
      itself on CPU tensors, on a tied block and on one without ties, in
      both of its ways (a row of 262,144 and one of 8,192 distances);
      the main path: SessionContext, CREATE TABLE / VECTOR INDEX, insert of
      1,000,000 SIFT1M-shaped rows (128-d integer values in [0, 255], seed 7),
      a literal KNN query, execute_batch (B=256), execute_batch_block
      (B=1024, exact and approximate; B=256 approximate runs the exact
-     program and launches no kernel) and a cosine batch; recall@10 against
-     a numpy ground truth on 16 queries, launch counts of every kernel;
+     program) and a cosine batch; recall@10 against a numpy ground truth on
+     16 queries, launch counts of every kernel (exact_topk_select once a
+     256-query chunk of an exact batch, the approximate B = 1,024 batches
+     none);
      then [sq8] on the same corpus: ``ops.quantization.encode`` (quantile
      0.99), ``approx_dot`` on [16, N] against the formula over integer
      products in numpy (within 4 f32 ulp of its terms), ``topk_l2`` at
@@ -144,7 +159,8 @@ Phases (any failure exits non-zero and prints no result line):
      200, 400) must not fall and reach HNSW_RECALL_WIDE; then ``hnsw_search`` alone on
      one block at B = 1, 256 and 1,024 (ms per batch, steps; with --profile
      device busy, idle share and device items per step). Nothing here falls
-     back to the exact scan or to the CPU;
+     back to the exact scan or to the CPU; the build's kNN graph launches
+     exact_topk_select;
   8. [cluster]: CREATE TABLE ... CLUSTER BY (emb) and an insert of 262,144
      SIFT-shaped rows (the reference's batch of 64 clusters): k-means runs
      on the card, its cluster runs cover every row once, and a KNN query on
@@ -185,7 +201,8 @@ Phases (any failure exits non-zero and prints no result line):
      (benchmarks/mesh_knn_bench.py): 10,000,000 x 96 standard normal f32
      rows (seed 5) row-sharded over 4 shards (placed as in [dist]), B = 8,
      k = 10, l2: upload s, first and warm batch ms in f32 and bf16, device
-     busy of each shard's scan; f32 ids equal to the single-device
+     busy of each shard's scan, exact_topk_select launches of the f32
+     batches (one a chunk and shard); f32 ids equal to the single-device
      ``chunked_topk_smallest`` and to an f64 numpy truth (recall 1.0),
      distances within 1e-3 x the largest; bf16 recall >= 0.95. Then
      ``sharded_search_step`` on a (2, 2) mesh over 1,048,576 of the rows
@@ -418,7 +435,8 @@ def build_kernels():
     ptxas says and fail on any spill."""
     from concurrent.futures import ThreadPoolExecutor
     from databend_tpu_torch.ops import _cuda
-    names = ("flash_group_minima", "impact_bm25_scores", "grouped_sums")
+    names = ("flash_group_minima", "impact_bm25_scores", "grouped_sums",
+             "exact_topk_select")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_cuda.build, names)))
@@ -907,6 +925,169 @@ def diagnose_flash(card):
             check(name != "kernel" or bad == 0, "the kernel races")
 
 
+EXACT_REPEATS = 300    # [exact]: launches at the serving shape that must repeat
+
+
+def exact_bound(qx, qq, xx, keep, k):
+    """(ms, "bytes" or "operations"): the least time one exact_topk_select
+    call could take: one read of the product block, the norms and the mask
+    and one write of the [b, k] result at the memory rate, or its f32
+    operations (at most five a cell: the l2 epilogue) at the f32 peak and
+    one key compare a cell at the int32 rate, whichever is larger."""
+    b, n = qx.shape
+    nbytes = qx.numel() * 4 + b * k * 12 + sum(
+        t.numel() * t.element_size() for t in (qq, xx, keep) if t is not None)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = b * n * (5 / F32_FLOPS_PER_S + 1 / INT32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hold_exact(card, what, qx, qq, xx, metric, k, n_valid=None, keep=None,
+               repeats=0, timed=False):
+    """exact_topk_select against its plain version on the same tensors: ids
+    equal and values bit-equal (one launch, or none above MAX_K, where the
+    composition runs); ``repeats`` more launches must give the first
+    answer's bits. ``timed``: the kernel (a CUDA graph replay and a wrapper
+    call), the plain version and ``torch.topk`` over the finished distance
+    block (no tie rule, no masks: the library yardstick) beside the bound.
+    Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by, topk_ms)."""
+    from databend_tpu_torch.ops import exact_topk as ex
+    from databend_tpu_torch.ops.distance import finish_distance
+    call = functools.partial(ex.exact_topk_select, qx, qq, xx, metric, k,
+                             n_valid, keep)
+    before = ex.exact_topk_select.launches
+    vals, ids = call()
+    torch.cuda.synchronize()
+    want = 1 if k <= ex.MAX_K else 0
+    check(ex.exact_topk_select.launches == before + want,
+          f"[exact] {what}: {ex.exact_topk_select.launches - before} "
+          f"launches, want {want}")
+    want_v, want_i = ex._exact_topk_select_plain(qx, qq, xx, metric, k,
+                                                 n_valid, keep)
+    check(vals.shape == (qx.shape[0], k) and torch.equal(ids, want_i),
+          f"[exact] {what}: ids differ from the plain version")
+    check(same_bits(vals, want_v),
+          f"[exact] {what}: values differ from the plain version")
+    fin = torch.isfinite(want_v)
+    err = float((vals[fin] - want_v[fin]).abs().max()) if fin.any() else 0.0
+    for i in range(repeats):
+        again_v, again_i = call()
+        check(torch.equal(again_i, ids) and same_bits(again_v, vals),
+              f"[exact] {what}: launch {i + 2} differs from the first")
+    inf_share = 1.0 - float(fin.float().mean())
+    del want_v, want_i, fin
+    rep = f", {repeats} repeats equal" if repeats else ""
+    if not timed:
+        print(f"[exact] exact_topk_select {what}: ids and values bit-equal to "
+              f"the plain version{rep} ({100 * inf_share:.1f}% of the top {k} "
+              f"+inf) [{card}]")
+        return err, None, None, None, None, None
+    plan = ex._plan(*qx.shape, torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
+    ms, call_ms = device_ms(call), cuda_ms(call)
+    plain_ms = cuda_ms(lambda: ex._exact_topk_select_plain(
+        qx, qq, xx, metric, k, n_valid, keep), reps=3)
+    d = finish_distance(qx, qq, xx, metric)
+    topk_ms = device_ms(lambda: torch.topk(d, k, dim=1, largest=False))
+    del d
+    bound_ms, bound_by = exact_bound(qx, qq, xx, keep, k)
+    print(f"[exact] exact_topk_select {what}: ids and values bit-equal to the "
+          f"plain version{rep}; plan {plan.ways} strips of {plan.strip} a "
+          f"query; kernel {ms:.4f} ms on the card ({call_ms:.4f} ms a call "
+          f"of the wrapper), plain {plain_ms:.4f} ms, torch.topk over the "
+          f"finished distances {topk_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}, {100 * bound_ms / ms:.0f}% reached) [{card}]")
+    return err, ms, plain_ms, bound_ms, bound_by, topk_ms
+
+
+def phase_exact_kernel(card):
+    """exact_topk_select against its plain version on the card, on the
+    product blocks of the exact paths: the serving chunk (b = 256 against
+    1,000,000 SIFT-valued rows of 128) under l2, cosine and ip, each
+    EXACT_REPEATS times over, and at k = 1, 128 and 129 (the composition's
+    route), with a mask per query, with one row of mask for every query,
+    with n_valid < N and on a ragged, unaligned N; the [ties] blocks
+    (integer rows in [0, 3], and rows of a power-of-two norm under cosine
+    with a zero query); [mesh]'s chunk (b = 8 against 131,072 rows of 96);
+    the HNSW build's batch (b = 1,024 against 65,536 rows, k = 101, a bf16
+    product). Returns {shape: hold_exact's tuple}."""
+    from databend_tpu_torch.ops.distance import normalize, pairwise_product
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    x = torch.randint(0, 256, (N_ROWS, DIM), generator=g, device="cuda",
+                      dtype=torch.int32).float()
+    q = x[torch.randint(0, N_ROWS, (256,), generator=g, device="cuda")] \
+        + torch.randn(256, DIM, generator=g, device="cuda")
+    norms = (x * x).sum(1)
+    for metric in ("l2", "cosine", "ip"):
+        xm = normalize(x) if metric == "cosine" else x
+        ops = pairwise_product(q, xm, metric, x_sq_norms=norms,
+                               x_normalized=metric == "cosine")
+        out[(metric, 256, K)] = hold_exact(
+            card, f"{metric} b=256 N={N_ROWS} k={K}", *ops, metric, K,
+            repeats=EXACT_REPEATS, timed=True)
+        if metric != "l2":
+            del ops, xm
+            continue
+        for k in (1, 128, 129):
+            out[(metric, 256, k)] = hold_exact(
+                card, f"l2 b=256 N={N_ROWS} k={k}", *ops, metric, k,
+                timed=k == 128)
+        keep = torch.rand(256, N_ROWS, generator=g, device="cuda") < 0.05
+        out["keep"] = hold_exact(card, "l2 b=256, a mask a query (5% kept)",
+                                 *ops, metric, K, keep=keep, timed=True)
+        row = keep[:1].clone()
+        out["keep row"] = hold_exact(card, "l2 b=256, one mask row", *ops,
+                                     metric, K, keep=row)
+        out["n_valid"] = hold_exact(card, f"l2 b=256, n_valid = {N_ROWS - 999}",
+                                    *ops, metric, K, n_valid=N_ROWS - 999)
+        del keep, row
+        n = N_ROWS - 3               # rows of 4 * N - 12 bytes: scalar loads
+        qx = ops[0][:, :n].contiguous()
+        out["ragged"] = hold_exact(card, f"l2 b=256 N={n} (unaligned rows)",
+                                   qx, ops[1], ops[2][:n].contiguous(),
+                                   metric, K, n_valid=n - 5)
+        del qx, ops, xm
+    del x, q, norms
+    torch.cuda.empty_cache()
+
+    # the [ties] blocks: exact distances, ties at every rank
+    xt = torch.randint(0, 4, (TIES_ROWS, DIM), generator=g,
+                       device="cuda").float()
+    qt = torch.randint(0, 4, (300, DIM), generator=g, device="cuda").float()
+    out["ties l2"] = hold_exact(card, f"[ties] l2 b=256 N={TIES_ROWS}",
+                                *pairwise_product(qt[:256], xt, "l2"), "l2",
+                                K)
+    pool = torch.randint(0, 4, (400_000, 8), generator=g,
+                         device="cuda").float()
+    pool = pool[torch.isin((pool ** 2).sum(1),
+                           torch.tensor([1.0, 4.0, 16.0], device="cuda"))]
+    xc = pool[torch.randint(0, pool.shape[0], (TIES_ROWS,), generator=g,
+                            device="cuda")]
+    qc = pool[:256].clone()
+    qc[0] = 0.0
+    out["ties cosine"] = hold_exact(
+        card, f"[ties] cosine b=256 N={TIES_ROWS}, a zero query",
+        *pairwise_product(qc, normalize(xc), "cosine", x_normalized=True),
+        "cosine", K)
+    del xt, qt, pool, xc, qc
+
+    # [mesh]'s chunk and the HNSW build's batch
+    xm = torch.randn(131_072, MESH_DIM, generator=g, device="cuda")
+    qm = torch.randn(MESH_B, MESH_DIM, generator=g, device="cuda")
+    out["mesh"] = hold_exact(card, f"l2 b={MESH_B} N=131072 D={MESH_DIM}",
+                             *pairwise_product(qm, xm, "l2"), "l2", K,
+                             timed=True)
+    xh = normalize(torch.randn(65_536, DIM, generator=g, device="cuda"))
+    out["hnsw"] = hold_exact(card, "ip b=1024 N=65536 k=101, bf16 product",
+                             *pairwise_product(xh[:1024], xh, "ip",
+                                               torch.bfloat16), "ip", 101,
+                             timed=True)
+    del xm, qm, xh
+    torch.cuda.empty_cache()
+    return out
+
+
 def ties_truth(x, q, metric, keep=None):
     """The reference's ids on exact distances: ascending distance, equal
     distances by ascending row id (``jax.lax.top_k(-d, k)``); rows outside
@@ -944,6 +1125,7 @@ def phase_ties(card):
     import databend_tpu_torch as dt
     from databend_tpu_torch.expression import Column, DataBlock
     from databend_tpu_torch.ops import topk
+    from databend_tpu_torch.ops.exact_topk import exact_topk_select
     from databend_tpu_torch.types import VectorType
 
     rng = np.random.default_rng(TIES_SEED)
@@ -956,6 +1138,7 @@ def phase_ties(card):
     qc[0] = 0.0
     price = rng.integers(0, 100, TIES_ROWS).astype(np.int64)
     bounds = np.resize(np.array([1, 50, 90, 100]), 300)
+    total = 0
     with tempfile.TemporaryDirectory() as root:
         ctx = dt.SessionContext(root)
         try:
@@ -978,6 +1161,7 @@ def phase_ties(card):
                 keep = price[None, :] < bounds[:, None]
                 want_f, _ = ties_truth(rows, qs, metric, keep)
                 lit = [",".join(f"{v:.1f}" for v in r) for r in qs[:8]]
+                exact_topk_select.launches = 0
                 got_lit = np.array([[r[0] for r in ctx.sql(
                     f"SELECT id FROM {table} ORDER BY {fn}(emb, [{v}]) "
                     "LIMIT 10").rows()] for v in lit])
@@ -996,6 +1180,8 @@ def phase_ties(card):
                                       [(v, int(p), v)
                                        for v, p in zip(qs, bounds)],
                                       exact=True)])
+                launches = exact_topk_select.launches
+                total += launches
                 same = {"literal": (got_lit == want[:8]).all(1),
                         "execute_batch": (got_b == want[:256]).all(1),
                         "execute_batch_block": (got_blk == want).all(1),
@@ -1004,7 +1190,11 @@ def phase_ties(card):
                       f"{100 * tied:.0f}% of queries tie across rank 10: "
                       + ", ".join(f"{k} {int(v.sum())}/{len(v)} equal to "
                                   f"the tie-rule truth"
-                                  for k, v in same.items()) + f" [{card}]")
+                                  for k, v in same.items())
+                      + f"; exact_topk_select launches {launches} [{card}]")
+                check(launches >= 8 + 1 + 2 + 2,
+                      f"[ties] {fn}: exact_topk_select launched {launches} "
+                      "times, want one a statement and a query chunk")
                 for k, v in same.items():
                     check(v.all(), f"[ties] {fn} {k}: ids differ from the "
                                    "tie-rule truth")
@@ -1024,11 +1214,13 @@ def phase_ties(card):
                   f"block, {what}: card equal to CPU: {same} [{card}]")
             check(same, f"[ties] the card's selection ({what}, n = {n}) "
                         "differs from the CPU's")
+    return total
 
 
 def phase_main_path(card, profile):
     import databend_tpu_torch as dt
     from databend_tpu_torch.expression import Column, DataBlock
+    from databend_tpu_torch.ops import exact_topk as ex
     from databend_tpu_torch.ops import flash_topk as ft
     from databend_tpu_torch.types import VectorType
 
@@ -1055,11 +1247,15 @@ def phase_main_path(card, profile):
                   f"{time.perf_counter() - t0:.1f} s")
 
             ft.flash_group_minima.launches = 0
-            run_queries(ctx, queries, gt, card, ft)
+            ex.exact_topk_select.launches = 0
+            run_queries(ctx, queries, gt, card, ft, ex)
             launches = ft.flash_group_minima.launches
+            exact_launches = ex.exact_topk_select.launches
+            print(f"[main] launches over the main path: flash_group_minima "
+                  f"{launches}, exact_topk_select {exact_launches} [{card}]")
             if profile:
                 profile_modes(ctx, queries, card)
-            return launches, x, queries, gt
+            return launches, exact_launches, x, queries, gt
         finally:
             ctx.close()
 
@@ -1070,23 +1266,29 @@ def _ids_scores(res, b):
     return ids, d
 
 
-def run_queries(ctx, queries, gt, card, ft):
+def run_queries(ctx, queries, gt, card, ft, ex):
     d_l2, kth_l2 = gt["l2"]
     d_cos, kth_cos = gt["cosine"]
 
     lit = "[" + ",".join(str(int(v)) for v in queries[0]) + "]"
     t0 = time.perf_counter()
+    before = ex.exact_topk_select.launches
     rows = ctx.sql(f"SELECT id FROM t ORDER BY l2_distance(emb, {lit}) "
                    "LIMIT 10").rows()
     lit_s = time.perf_counter() - t0
+    grew = ex.exact_topk_select.launches - before
     r = recall(np.array([[i for (i,) in rows]]), d_l2[:1], kth_l2[:1])
     print(f"[main] literal ctx.sql KNN: {lit_s:.3f} s (first query, loads the "
-          f"corpus), recall@10 {r} [{card}]")
+          f"corpus), recall@10 {r}, exact_topk_select launches {grew} "
+          f"[{card}]")
+    check(grew > 0, "the literal KNN statement launched exact_topk_select "
+                    "no time")
     check(len(rows) == K and r >= 0.99, f"literal KNN recall {r}")
 
     ps = ctx.prepare("SELECT id FROM t ORDER BY l2_distance(emb, ?) LIMIT 10")
     q256 = queries[:256]
     ps.execute_batch(q256)                                     # warm
+    before = ex.exact_topk_select.launches
     times = []
     for _ in range(REPS):
         t0 = time.perf_counter()
@@ -1095,9 +1297,12 @@ def run_queries(ctx, queries, gt, card, ft):
     dt_b = float(np.median(times))
     ids = np.array([[i for (i,) in rr.rows()] for rr in res[:N_GT]])
     r = recall(ids, d_l2, kth_l2)
+    grew = ex.exact_topk_select.launches - before
     print(f"[main] execute_batch l2 exact B=256: {256 / dt_b:.1f} QPS "
           f"(median of {REPS} batches, {[round(t * 1e3, 3) for t in times]} "
-          f"ms), recall@10 {r} [{card}]")
+          f"ms), recall@10 {r}, exact_topk_select launches {grew} [{card}]")
+    check(grew == REPS, f"execute_batch B=256: {grew} exact_topk_select "
+                        f"launches over {REPS} batches, want one a batch")
     check(len(res) == 256 and r >= 0.99, f"execute_batch recall {r}")
     check(ps._knn._x.is_cuda, "the corpus is not on the card")
 
@@ -1108,6 +1313,7 @@ def run_queries(ctx, queries, gt, card, ft):
         bp = ctx.prepare(sql.format(fn=f"{metric}_distance"))
         bp.execute_batch_block(sets, exact=exact)              # warm
         before = ft.flash_group_minima.launches
+        before_ex = ex.exact_topk_select.launches
         times = []
         for _ in range(REPS):
             t0 = time.perf_counter()
@@ -1115,6 +1321,7 @@ def run_queries(ctx, queries, gt, card, ft):
             times.append(time.perf_counter() - t0)
         dt_b = float(np.median(times))
         grew = ft.flash_group_minima.launches - before
+        grew_ex = ex.exact_topk_select.launches - before_ex
         ids, d = _ids_scores(res, len(sets))
         check(np.isfinite(d).all(), f"{metric} exact={exact}: non-finite scores")
         dd, kth = (d_l2, kth_l2) if metric == "l2" else (d_cos, kth_cos)
@@ -1125,10 +1332,15 @@ def run_queries(ctx, queries, gt, card, ft):
         print(f"[main] execute_batch_block {metric} exact={exact} B={len(sets)}: "
               f"{len(sets) / dt_b:.1f} QPS (median of {REPS} batches, "
               f"{[round(t * 1e3, 3) for t in times]} ms), recall@10 {r}, "
-              f"max |score - f64| {err}, flash launches {grew} [{card}]")
+              f"max |score - f64| {err}, flash launches {grew}, "
+              f"exact_topk_select launches {grew_ex} [{card}]")
         check(r >= need, f"{metric} exact={exact}: recall {r} < {need}")
         check(err <= 1e-3 * max(1.0, float(np.abs(true).max())),
               f"{metric} exact={exact}: scores off by {err}")
+        chunks = -(-len(sets) // 256)
+        check(grew_ex == (REPS * chunks if exact else 0),
+              f"{metric} exact={exact}: {grew_ex} exact_topk_select "
+              f"launches over {REPS} batches of {chunks} query chunks")
         if exact:
             check(grew == 0, "the exact mode launched the flash kernel")
         else:
@@ -1139,15 +1351,20 @@ def run_queries(ctx, queries, gt, card, ft):
     # a batch of one 256-query chunk runs the exact program in both modes
     bp = ctx.prepare(sql.format(fn="l2_distance"))
     before = ft.flash_group_minima.launches
+    before_ex = ex.exact_topk_select.launches
     t0 = time.perf_counter()
     res = bp.execute_batch_block(sets[:256], exact=False)
     dt_b = time.perf_counter() - t0
     grew = ft.flash_group_minima.launches - before
+    grew_ex = ex.exact_topk_select.launches - before_ex
     ids, _ = _ids_scores(res, 256)
     r = recall(ids[:N_GT], d_l2, kth_l2)
     print(f"[main] execute_batch_block l2 exact=False B=256: {dt_b * 1e3:.3f} ms "
-          f"(one batch), recall@10 {r}, flash launches {grew} [{card}]")
+          f"(one batch), recall@10 {r}, flash launches {grew}, "
+          f"exact_topk_select launches {grew_ex} [{card}]")
     check(grew == 0, "a one-chunk approximate batch launched the flash kernel")
+    check(grew_ex == 1, "a one-chunk approximate batch did not run the exact "
+                        "kernel once")
     check(r >= 0.99, f"one-chunk approximate batch: recall {r}")
 
 
@@ -1617,6 +1834,7 @@ def phase_hnsw(card, profile):
     from databend_tpu_torch.index.hnsw import hnsw_search
     from databend_tpu_torch.index.hnsw.build import BUILD_STAGES
     from databend_tpu_torch.index.hnsw.search import postprocess_scores
+    from databend_tpu_torch.ops.exact_topk import exact_topk_select
     from databend_tpu_torch.types import VectorType
     from databend_tpu_torch.utils.metrics import METRICS
 
@@ -1639,12 +1857,14 @@ def phase_hnsw(card, profile):
                     f"ef_construct='{HNSW_EF_CONSTRUCT}'")
             done = {s: len(METRICS.histograms[f"hnsw_build_{s}_seconds"])
                     for s in BUILD_STAGES}
+            exact_topk_select.launches = 0
             t0 = time.perf_counter()
             ctx.insert_block("h", DataBlock(
                 ["id", "emb"],
                 [Column.from_numpy(np.arange(HNSW_ROWS, dtype=np.int64)),
                  Column.from_numpy(x, VectorType(DIM))]))
             insert_s = time.perf_counter() - t0
+            build_launches = exact_topk_select.launches
             table = ctx.table("h")
             metas = [m for seg in table.read_segments(table.read_snapshot())
                      for m in seg.blocks]
@@ -1660,7 +1880,11 @@ def phase_hnsw(card, profile):
                       f"{sum(stages[s][bi] for s in BUILD_STAGES):.3f} s "
                       f"({split}) [{card}]")
             print(f"[hnsw] create + insert {HNSW_ROWS} rows with a graph on "
-                  f"each of {len(metas)} blocks: {insert_s:.1f} s [{card}]")
+                  f"each of {len(metas)} blocks: {insert_s:.1f} s; the kNN "
+                  f"graphs launched exact_topk_select {build_launches} times "
+                  f"[{card}]")
+            check(build_launches > 0, "[hnsw] the build launched "
+                                      "exact_topk_select no time")
             graphs = [table.load_vector_graph(m, "hv", "cosine") for m in metas]
             check(all(g is not None and g.num_points == m.row_count
                       and g.m0 == 2 * HNSW_M for g, m in zip(graphs, metas)),
@@ -1775,6 +1999,7 @@ def phase_hnsw(card, profile):
                           f"device items a step, {busy / steps * 1e3:.1f} us "
                           f"busy of {whole / steps * 1e3:.1f} us a step "
                           f"[{card}]")
+            return build_launches
         finally:
             ctx.close()
 
@@ -1978,6 +2203,7 @@ def phase_mesh(card, work):
     written to ``work`` for [multihost]; returns the f32 ids, the f64
     truth's ids and its k-th distances."""
     from databend_tpu_torch import backend, parallel
+    from databend_tpu_torch.ops.exact_topk import exact_topk_select
     from databend_tpu_torch.ops.topk import chunked_topk_smallest
     from databend_tpu_torch.parallel import distributed
     from databend_tpu_torch.parallel import mesh as pm
@@ -2023,7 +2249,9 @@ def phase_mesh(card, work):
             warm.append((time.perf_counter() - t0) * 1e3)
         return dv, iv, first, float(np.median(warm))
 
+    exact_topk_select.launches = 0
     dv, iv, first, warm = timed(False)
+    mesh_launches = exact_topk_select.launches
     x_one = torch.cat([b.to(devs[0]) for b in x_dev.shards()])
     sv, si = chunked_topk_smallest(backend.to_device(q, device=devs[0]),
                                    x_one, K, "l2")
@@ -2038,14 +2266,18 @@ def phase_mesh(card, work):
           f"{warm:.1f} ms (median of 3), recall@10 {r}, ids equal to the "
           f"single-device chunked_topk_smallest: {np.array_equal(iv, si)}, "
           f"to the f64 truth: {np.array_equal(iv, truth)}, max |d - f64| "
-          f"{err} [{card}]")
+          f"{err}; exact_topk_select launches {mesh_launches} over 4 batches "
+          f"[{card}]")
+    check(mesh_launches > 0, "[mesh] the f32 batches launched "
+                             "exact_topk_select no time")
     check(np.array_equal(iv, si), "[mesh] f32 ids differ from the "
                                   "single-device scan")
     check(r == 1.0, f"[mesh] f32 recall {r}")
     check(err <= 1e-3 * float(true.max()), f"[mesh] distances off by {err}")
 
     knn_ref = {"ids": iv, "truth": truth,
-               "kth": np.take_along_axis(d, truth, 1).max(1)}
+               "kth": np.take_along_axis(d, truth, 1).max(1),
+               "exact_launches": mesh_launches}
     bv, bi, first, warm = timed(True)
     rb = recall(bi.astype(np.int64), d, knn_ref["kth"])
     print(f"[mesh] bf16 B={MESH_B} k={K}: first batch {first:.1f} ms, warm "
@@ -3364,13 +3596,16 @@ def main():
     kern = phase_kernels(card)
     imp, topk = phase_impact_kernels(card)
     gsk = phase_grouped_sums_kernel(card)
+    exk = phase_exact_kernel(card)
     if "--diagnose" in sys.argv[1:]:
         diagnose_flash(card)
         diagnose_grouped_sums(card)
     profile = "--profile" in sys.argv[1:]
-    phase_ties(card)
-    launches, x, queries, gt = phase_main_path(card, profile)
+    exact_launches = phase_ties(card)
+    launches, main_exact, x, queries, gt = phase_main_path(card, profile)
     check(launches > 0, "the main path launched flash_group_minima no time")
+    check(main_exact > 0, "the main path launched exact_topk_select no time")
+    exact_launches += main_exact
     phase_sq8(card, x, queries, gt)
     del x, queries, gt
     topk_launches, imp_launches = phase_match(card, profile)
@@ -3378,7 +3613,7 @@ def main():
                              "no time")
     check(imp_launches > 0, "the [match] path above the largest k launched "
                             "impact_bm25_scores no time")
-    phase_hnsw(card, profile)
+    exact_launches += phase_hnsw(card, profile)
     phase_cluster(card)
     with tempfile.TemporaryDirectory() as work:
         gs_launches, captured, tpch_launches, dist_rows = phase_agg(
@@ -3388,6 +3623,7 @@ def main():
         gsk.update(hold_grouped_sums_agg(card, captured))
         del captured
         mesh_ref = phase_mesh(card, work)
+        exact_launches += mesh_ref["exact_launches"]
         phase_multihost(card, work, mesh_ref, dist_rows)
     phase_suites(card)
     check_standalone()
@@ -3433,6 +3669,17 @@ def main():
         "max_abs_err": max(v[0] for v in gsk.values()), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms})
+    # the serving chunk: b = 256 against 1M rows, l2, k = 10; the library
+    # yardstick is torch.topk over the finished distances (no tie rule)
+    _, ms, plain_ms, bound_ms, bound_by, topk_ms = exk[("l2", 256, K)]
+    kernels.append({
+        "name": "exact_topk_select", "route": "cuda",
+        "source": "databend_tpu_torch/csrc/exact_topk_select.cu",
+        "replaces": "databend_tpu/storage/fuse/table.py:1084",
+        "launches": exact_launches,
+        "max_abs_err": max(v[0] for v in exk.values()), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": topk_ms})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

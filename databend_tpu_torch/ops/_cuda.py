@@ -10,6 +10,7 @@ time; a machine without ``nvcc`` fails only when a kernel is first launched.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -63,6 +64,13 @@ def build(name: str) -> dict:
         f.write(log)
     os.replace(tmp, out)
     return {"path": out, "seconds": time.perf_counter() - t0, "log": log}
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """The SMs of the card ``device`` (a launch plan fills them)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def load(name: str) -> ctypes.CDLL:

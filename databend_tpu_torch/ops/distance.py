@@ -44,9 +44,8 @@ def cosine_distance(q: torch.Tensor, x: torch.Tensor,
                     compute_dtype=torch.float32,
                     x_normalized: bool = False) -> torch.Tensor:
     """``1 - cos(q, x)`` pairwise."""
-    qn = normalize(q)
-    xn = x if x_normalized else normalize(x)
-    return 1.0 - _dot(qn, xn, compute_dtype)
+    return finish_distance(*pairwise_product(
+        q, x, "cosine", compute_dtype, x_normalized=x_normalized), "cosine")
 
 
 def l2_distance_squared(q: torch.Tensor, x: torch.Tensor,
@@ -56,18 +55,56 @@ def l2_distance_squared(q: torch.Tensor, x: torch.Tensor,
     """``||q - x||^2`` via ``|q|^2 - 2 q.x + |x|^2``, clamped at 0.
 
     ``x_sq_norms`` (precomputed ``[N]``) amortizes the norm over queries."""
-    q32 = q.float()
-    qq = torch.sum(q32 * q32, dim=-1, keepdim=True)          # [B, 1]
-    if x_sq_norms is None:
-        x32 = x.float()
-        x_sq_norms = torch.sum(x32 * x32, dim=-1)            # [N]
-    qx = _dot(q, x, compute_dtype)                           # [B, N]
-    return torch.clamp_min(qq - 2.0 * qx + x_sq_norms[None, :], 0.0)
+    return finish_distance(*pairwise_product(
+        q, x, "l2_sq", compute_dtype, x_sq_norms), "l2_sq")
 
 
 def l2_distance(q: torch.Tensor, x: torch.Tensor, compute_dtype=torch.float32,
                 x_sq_norms: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return torch.sqrt(l2_distance_squared(q, x, compute_dtype, x_sq_norms))
+    return finish_distance(*pairwise_product(
+        q, x, "l2", compute_dtype, x_sq_norms), "l2")
+
+
+def pairwise_product(q: torch.Tensor, x: torch.Tensor, metric: str,
+                     compute_dtype=torch.float32,
+                     x_sq_norms: Optional[torch.Tensor] = None,
+                     x_normalized: bool = False):
+    """The matrix product of a product-form metric and the norms its
+    distance needs: ``(qx [B, N] f32, qq [B] or None, xx [N] or None)``.
+    l2 and l2_sq: ``q.x`` and both squared norms (``x_sq_norms`` when
+    given); cosine: the product of the normalised rows (``x`` already
+    normalised when ``x_normalized``); ip: ``q.x``. l1 has no product form.
+    :func:`finish_distance` turns it into the distances."""
+    if metric in ("l2", "l2_sq"):
+        q32 = q.float()
+        qq = torch.sum(q32 * q32, dim=-1)                    # [B]
+        if x_sq_norms is None:
+            x32 = x.float()
+            x_sq_norms = torch.sum(x32 * x32, dim=-1)        # [N]
+        return _dot(q, x, compute_dtype), qq, x_sq_norms
+    if metric == "cosine":
+        qn = normalize(q)
+        xn = x if x_normalized else normalize(x)
+        return _dot(qn, xn, compute_dtype), None, None
+    if metric == "ip":
+        return _dot(q, x, compute_dtype), None, None
+    raise ValueError(f"pairwise_product: no product form for {metric!r}")
+
+
+def finish_distance(qx: torch.Tensor, qq: Optional[torch.Tensor],
+                    xx: Optional[torch.Tensor], metric: str) -> torch.Tensor:
+    """The ``[B, N]`` distances from :func:`pairwise_product`'s output, each
+    operation rounded to f32 in this order: l2_sq ``clamp_min((qq - 2 qx) +
+    xx, 0)``, l2 its ``sqrt``, cosine ``1 - qx``, ip ``-qx``
+    (``csrc/exact_topk_select.cu`` repeats it bit for bit)."""
+    if metric in ("l2", "l2_sq"):
+        d = torch.clamp_min(qq[:, None] - 2.0 * qx + xx[None, :], 0.0)
+        return torch.sqrt(d) if metric == "l2" else d
+    if metric == "cosine":
+        return 1.0 - qx
+    if metric == "ip":
+        return -qx
+    raise ValueError(f"finish_distance: no product form for {metric!r}")
 
 
 def l1_distance(q: torch.Tensor, x: torch.Tensor,
@@ -86,16 +123,11 @@ def pairwise_distance(q: torch.Tensor, x: torch.Tensor, metric: str,
                       x_sq_norms: Optional[torch.Tensor] = None,
                       x_normalized: bool = False) -> torch.Tensor:
     """Dispatch on metric name; returns ``[B, N]`` distances."""
-    if metric == "cosine":
-        return cosine_distance(q, x, compute_dtype, x_normalized=x_normalized)
-    if metric == "l2":
-        return l2_distance(q, x, compute_dtype, x_sq_norms)
-    if metric == "l2_sq":
-        return l2_distance_squared(q, x, compute_dtype, x_sq_norms)
     if metric == "l1":
         return l1_distance(q, x)
-    if metric == "ip":
-        return -_dot(q, x, compute_dtype)
+    if metric in ("l2", "l2_sq", "cosine", "ip"):
+        return finish_distance(*pairwise_product(
+            q, x, metric, compute_dtype, x_sq_norms, x_normalized), metric)
     raise ValueError(f"unknown metric {metric!r}; expected one of {VALID_METRICS}")
 
 

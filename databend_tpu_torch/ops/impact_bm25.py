@@ -452,7 +452,7 @@ def impact_bm25_topk(term_ids: torch.Tensor, sat: torch.Tensor,
     b, m = qpack.shape[:2]
     lib = _launcher()
     dev = term_ids.device
-    plan = _topk_plan(n_pad, b, m, k, _sms(dev))
+    plan = _topk_plan(n_pad, b, m, k, _cuda.sm_count(dev))
     # the blocks' top k per query, then a threshold per query
     part = torch.empty(b * (plan.blocks * k + 1), dtype=torch.int64,
                        device=dev)
@@ -483,12 +483,6 @@ _LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 \
 # blocks; stream
 _TOPK_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_float] * 2 \
     + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-
-
-@functools.cache
-def _sms(device: torch.device) -> int:
-    """The card's SMs, which the selecting plan's persistent blocks fill."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache

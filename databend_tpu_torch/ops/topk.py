@@ -18,7 +18,7 @@ from typing import Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from .distance import _dot, pairwise_distance
+from .distance import _dot
 
 INF = float("inf")
 
@@ -188,8 +188,10 @@ def chunked_topk_smallest(q: torch.Tensor, x: torch.Tensor, k: int,
                           n_valid: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan + score + k-select over ``x [N, d]`` in chunks of ``chunk_rows``:
-    each chunk's scores fold into the running ``[B, k]`` set with one top-k
-    over ``[B, k + chunk]``, so peak memory is one chunk, not ``[B, N]``.
+    each chunk's product block goes to ``ops.exact_topk.exact_topk``
+    (distances, pad mask and the chunk's top k in one pass), whose top k
+    folds into the running ``[B, k]`` set with one selection over ``[B,
+    2k]``, running set first, so peak memory is one chunk, not ``[B, N]``.
     A ragged last chunk needs no padding.
 
     Equal distances rank by ascending row id, as ``jax.lax.top_k`` ranks
@@ -198,27 +200,27 @@ def chunked_topk_smallest(q: torch.Tensor, x: torch.Tensor, k: int,
     ``n_valid``: rows with global id >= n_valid are padding and score +inf
     BEFORE selection (index masking is the only metric-safe pad exclusion).
     Returns (distances ``[B, k]``, global ids ``base_id + row``)."""
+    from .exact_topk import exact_topk
     n = x.shape[0]
     b = q.shape[0]
     dev = x.device
+
+    def chunk_topk(start, xi, ni):
+        rel = None if n_valid is None else max(0, n_valid - base_id - start)
+        vals, pos = exact_topk(q, xi, min(k, xi.shape[0]), metric,
+                               compute_dtype, ni, n_valid=rel)
+        return vals, pos + (base_id + start)
+
     if n <= chunk_rows:
-        dists = pairwise_distance(q, x, metric, compute_dtype, x_sq_norms)
-        ids = torch.arange(n, device=dev) + base_id
-        if n_valid is not None:
-            dists = torch.where(ids[None, :] < n_valid, dists, INF)
-        vals, pos = topk_smallest_lowest_index(dists, min(k, n))
-        return vals, ids[pos]
+        return chunk_topk(0, x, x_sq_norms)
     best_v = torch.full((b, k), INF, dtype=torch.float32, device=dev)
     best_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
     for start in range(0, n, chunk_rows):
         xi = x[start:start + chunk_rows]
         ni = None if x_sq_norms is None else x_sq_norms[start:start + chunk_rows]
-        dists = pairwise_distance(q, xi, metric, compute_dtype, ni)
-        ids = torch.arange(xi.shape[0], device=dev) + (base_id + start)
-        if n_valid is not None:
-            dists = torch.where(ids[None, :] < n_valid, dists, INF)
-        cat_v = torch.cat([best_v, dists], dim=1)
-        cat_i = torch.cat([best_i, ids.expand(b, -1)], dim=1)
+        top_v, top_i = chunk_topk(start, xi, ni)
+        cat_v = torch.cat([best_v, top_v], dim=1)
+        cat_i = torch.cat([best_i, top_i], dim=1)
         best_v, pos = topk_smallest_lowest_index(cat_v, k)
         best_i = torch.gather(cat_i, 1, pos)
     return best_v, best_i

@@ -28,10 +28,12 @@ hand-written group-min scan over a bf16 copy of the corpus, then an exact
 f32 re-rank of the shortlisted groups. A batch of one chunk runs the exact
 program in both modes, as in the reference. l1 has no matmul form and takes
 the plain scan. A filtered statement cannot hand its per-query masks to the
-kernel, so it selects with the exact top-k in both modes, and its
-approximate answer is exact. Every exact selection ranks equal distances by
-ascending row id, as the reference's ``lax.top_k(-d, k)`` does
-(``ops.topk.topk_smallest_lowest_index``). ``match()`` statements above
+flash kernel, so it selects with the exact top-k in both modes, and its
+approximate answer is exact. Every exact selection is the hand-written
+``ops.exact_topk.exact_topk_select`` on each query chunk's product block
+(the filtered one with its row mask), and ranks equal distances by
+ascending row id, as the reference's ``lax.top_k(-d, k)`` does.
+``match()`` statements above
 ``_MatchServer.DEVICE_MIN_DOCS`` rows are served from per-block device BM25
 scorers (``index/inverted/device.py``), text-only and fused with a vector
 distance.
@@ -294,27 +296,28 @@ def _scan_topk_filtered_program(Q: torch.Tensor, x: torch.Tensor, k: int,
                                 fvals, f_ops):
     """Filtered batched KNN (BASELINE config 3): a static row mask
     (host-evaluated WHERE conjuncts, uploaded once per snapshot) plus
-    per-query ``col op ?`` comparisons against device-resident columns.
-    Excluded rows score +inf; rows that survive with +inf are trimmed by
-    the caller (a query may match fewer than k rows). Reference: filter +
-    vector index pushdown, pushdown.rs:167-207."""
-    from ..ops.distance import pairwise_distance
-    from ..ops.topk import topk_smallest_lowest_index_blocks
+    per-query ``col op ?`` comparisons against device-resident columns,
+    composed per query chunk into the ``keep`` mask of
+    ``ops.exact_topk.exact_topk``. Excluded rows score +inf; rows that
+    survive with +inf are trimmed by the caller (a query may match fewer
+    than k rows). Reference: filter + vector index pushdown,
+    pushdown.rs:167-207."""
+    from ..ops.exact_topk import exact_topk
     norms = torch.sum(x * x, -1) if metric == "l2" else None
-    base = (torch.arange(x.shape[0], device=x.device) < n_valid) & smask
-
-    def scores():
-        for start in range(0, Q.shape[0], _QUERY_CHUNK):
-            qb = Q[start:start + _QUERY_CHUNK]
-            d = pairwise_distance(qb, x, metric, x_sq_norms=norms,
-                                  x_normalized=(metric == "cosine"))
-            m = base[None, :]
-            for op, col, fv in zip(f_ops, fcols, fvals):
-                m = m & _cmp(op, col[None, :],
-                             fv[start:start + _QUERY_CHUNK, None])
-            yield d.masked_fill_(~m, float("inf"))
-
-    vals, ids = topk_smallest_lowest_index_blocks(scores(), k)
+    base = ((torch.arange(x.shape[0], device=x.device) < n_valid)
+            & smask)[None, :]
+    parts = []
+    for start in range(0, Q.shape[0], _QUERY_CHUNK):
+        qb = Q[start:start + _QUERY_CHUNK]
+        m = base
+        for op, col, fv in zip(f_ops, fcols, fvals):
+            m = m & _cmp(op, col[None, :],
+                         fv[start:start + _QUERY_CHUNK, None])
+        parts.append(exact_topk(qb, x, k, metric, x_sq_norms=norms,
+                                x_normalized=(metric == "cosine"),
+                                keep=m.contiguous()))
+    vals = torch.cat([v for v, _ in parts])
+    ids = torch.cat([i for _, i in parts])
     if metric == "l2":
         # +inf marks "fewer than k matches" — survive the re-score
         vals = torch.where(torch.isinf(vals), vals, _rescore_l2(Q, x, ids))

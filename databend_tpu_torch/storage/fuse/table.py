@@ -1071,29 +1071,25 @@ _QUERY_CHUNK = 256
 def _exact_topk_program(q, x: torch.Tensor, k: int, metric: str,
                         n_valid=None, x_sq_norms=None):
     """Exact top-k of ``q [B, d]`` against ``x``, per chunk of
-    ``_QUERY_CHUNK`` queries: scores, index mask of the pad rows past
-    ``n_valid``, k-select and, for l2, a diff-based re-score of the winners.
-    Equal distances rank by ascending row id, as the reference's
-    ``lax.top_k(-d, k)`` ranks them. ``x_sq_norms`` (l2): ``x``'s row norms,
-    when the caller scans ``x`` more than once. Returns device tensors (vals
-    ``[B, k]`` f32, ids int32)."""
-    from ...ops.distance import pairwise_distance
-    from ...ops.topk import topk_smallest_lowest_index_blocks
+    ``_QUERY_CHUNK`` queries: the product block, then
+    ``ops.exact_topk.exact_topk_select`` (distances, index mask of the pad
+    rows past ``n_valid``, k-select, in one pass) and, for l2, a diff-based
+    re-score of the winners. Equal distances rank by ascending row id, as
+    the reference's ``lax.top_k(-d, k)`` ranks them. ``x_sq_norms`` (l2):
+    ``x``'s row norms, when the caller scans ``x`` more than once. Returns
+    device tensors (vals ``[B, k]`` f32, ids int32); one chunk's block is
+    alive at a time."""
+    from ...ops.exact_topk import exact_topk
     qd = q if isinstance(q, torch.Tensor) else backend.to_device(
         np.asarray(q, np.float32))
-
-    def scores():
-        for qb in torch.split(qd, _QUERY_CHUNK):
-            d = pairwise_distance(qb, x, metric, x_sq_norms=x_sq_norms,
-                                  x_normalized=(metric == "cosine"))
-            if n_valid is not None and n_valid < x.shape[0]:
-                # rows past n_valid are block padding (device arrays pad to
-                # the SPAN_QUANTUM grid): masked by INDEX — no pad value is
-                # safe for every metric
-                d[:, n_valid:] = float("inf")
-            yield d
-
-    vals, ids = topk_smallest_lowest_index_blocks(scores(), k)
+    # rows past n_valid are block padding (device arrays pad to the
+    # SPAN_QUANTUM grid): masked by INDEX — no pad value is safe for every
+    # metric
+    parts = [exact_topk(qb, x, k, metric, x_sq_norms=x_sq_norms,
+                        x_normalized=(metric == "cosine"), n_valid=n_valid)
+             for qb in torch.split(qd, _QUERY_CHUNK)]
+    vals = torch.cat([v for v, _ in parts])
+    ids = torch.cat([i for _, i in parts])
     if metric == "l2":
         vals = _rescore_l2(qd, x, ids)
     return vals, ids.to(torch.int32)
