@@ -69,17 +69,22 @@ Phases (any failure exits non-zero and prints no result line):
      every row in one group; after [agg], on the inputs each [agg]
      statement gave it (the route's list of rows);
      exact_topk_select ([exact]: ids equal and values bit-equal to its
-     plain version, the masked finish_distance and the tie-rule top-k; its
-     bound one read of the product block, the norms and the mask and the
-     [b, k] result at 3.35 TB/s, beside torch.topk over the finished
-     distances, the library yardstick without the tie rule): the serving
-     chunk (b = 256 against 1M x 128 SIFT-valued rows, k = 10) under l2,
-     cosine and ip, EXACT_REPEATS launches each that must repeat the first
-     bits; l2 at k = 1, 128 and 129 (the composition's route, no launch), a
-     mask a query, one mask row for every query, n_valid < N, a ragged
-     N of unaligned rows; the [ties] blocks (l2, and cosine with a zero
-     query); [mesh]'s chunk (b = 8 against 131,072 rows of 96); the HNSW
-     build's batch (b = 1,024 against 65,536 rows, k = 101, bf16 product);
+     plain version, the masked finish_distance and the tie-rule top-k,
+     its plan printed; its bound one read of the product block, the norms
+     and the mask and the [b, k] result at 3.35 TB/s, beside torch.topk
+     over the finished distances, the library yardstick without the tie
+     rule): the serving chunk (b = 256 against 1M x 128
+     SIFT-valued rows, k = 10) under l2, cosine and ip, EXACT_REPEATS
+     launches each that must repeat the first bits; l2 at k = 1, 128 and
+     129 (the composition's route, no launch), a mask a query, one mask row
+     for every query, n_valid < N, a ragged N of unaligned rows, one query
+     (b = 1); the [ties] blocks (l2, and cosine with a zero query); [mesh]'s
+     chunk (b = 8 against 131,072 rows of 96) beside the launch floor (an
+     empty kernel's CUDA graph replay); the HNSW build's batch (b = 1,024
+     against 65,536 rows, bf16 product) at k = 1, 2, 10, 31, 32, 33, 64,
+     96, 97, 101, 127 and 128, k = 101 EXACT_HNSW_REPEATS times, with a mask
+     a query and n_valid < N, and on integer rows in [0, 3] (ties across
+     the 101st place);
   4. [ties]: exact KNN on tied distances (integer rows in [0, 3], 262,144 x
      128 under l2; rows of a power-of-two norm, 262,144 x 8 under cosine,
      and a zero query: distances exact in f32): 8 literal statements,
@@ -118,7 +123,12 @@ Phases (any failure exits non-zero and prints no result line):
      every placement grouped_sums can take (cluster size x blocks an SM,
      and the grid in out), each bit-equal and timed at n = 6M, K of 6 and
      20, G of 12, 10,001, 65,536, 200,000 and 400,000, the plan's choice
-     marked;
+     marked; then exact_topk_select at the four shapes of its redesign
+     (the serving chunk at k = 10 and 128, the HNSW build's batch, [mesh]'s
+     chunk): a build of its source with -DEXACT_TOPK_DIAG counts the warp
+     iterations with a candidate, the keys taken, the cuts and radix
+     passes and the final thresholds, and times the call's memset apart
+     from its kernel;
   6. [match]: the hybrid deployment of benchmarks/hybrid_serving_bench.py:
      1,000,000 rows in 4 blocks of 262,144 (id, cat, body of 2-4 words from
      a 16-word list, unit-norm 128-d embeddings, seed 17) under an inverted
@@ -926,6 +936,8 @@ def diagnose_flash(card):
 
 
 EXACT_REPEATS = 300    # [exact]: launches at the serving shape that must repeat
+EXACT_HNSW_REPEATS = 100   # [exact]: the same at the HNSW build's batch
+EXACT_HNSW_KS = (1, 2, 10, 31, 32, 33, 64, 96, 97, 101, 127, 128)
 
 
 def exact_bound(qx, qq, xx, keep, k):
@@ -942,15 +954,25 @@ def exact_bound(qx, qq, xx, keep, k):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def exact_plan(b, n):
+    """The plan exact_topk_select takes at (b, n) on this card."""
+    from databend_tpu_torch.ops import exact_topk as ex
+    return ex._plan(b, n, torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
+
+
 def hold_exact(card, what, qx, qq, xx, metric, k, n_valid=None, keep=None,
-               repeats=0, timed=False):
+               repeats=0, timed=False, floor=False):
     """exact_topk_select against its plain version on the same tensors: ids
     equal and values bit-equal (one launch, or none above MAX_K, where the
     composition runs); ``repeats`` more launches must give the first
-    answer's bits. ``timed``: the kernel (a CUDA graph replay and a wrapper
-    call), the plain version and ``torch.topk`` over the finished distance
-    block (no tie rule, no masks: the library yardstick) beside the bound.
-    Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by, topk_ms)."""
+    answer's bits. ``timed``: the kernel (a CUDA graph replay, and a
+    wrapper call), the plain version and ``torch.topk`` over the finished
+    distance block (no tie rule, no masks: the library yardstick) beside
+    the bound;
+    ``floor``: an empty kernel's graph replay too, the least a launch
+    takes. Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    topk_ms)."""
     from databend_tpu_torch.ops import exact_topk as ex
     from databend_tpu_torch.ops.distance import finish_distance
     call = functools.partial(ex.exact_topk_select, qx, qq, xx, metric, k,
@@ -977,13 +999,16 @@ def hold_exact(card, what, qx, qq, xx, metric, k, n_valid=None, keep=None,
     inf_share = 1.0 - float(fin.float().mean())
     del want_v, want_i, fin
     rep = f", {repeats} repeats equal" if repeats else ""
+    if k <= ex.MAX_K:
+        plan = exact_plan(*qx.shape)
+        on = f"{plan.ways} segment(s) of {plan.span} a query"
+    else:
+        on = "the composition"
     if not timed:
         print(f"[exact] exact_topk_select {what}: ids and values bit-equal to "
               f"the plain version{rep} ({100 * inf_share:.1f}% of the top {k} "
-              f"+inf) [{card}]")
+              f"+inf; plan: {on}) [{card}]")
         return err, None, None, None, None, None
-    plan = ex._plan(*qx.shape, torch.cuda.get_device_properties(0)
-                    .multi_processor_count)
     ms, call_ms = device_ms(call), cuda_ms(call)
     plain_ms = cuda_ms(lambda: ex._exact_topk_select_plain(
         qx, qq, xx, metric, k, n_valid, keep), reps=3)
@@ -991,26 +1016,36 @@ def hold_exact(card, what, qx, qq, xx, metric, k, n_valid=None, keep=None,
     topk_ms = device_ms(lambda: torch.topk(d, k, dim=1, largest=False))
     del d
     bound_ms, bound_by = exact_bound(qx, qq, xx, keep, k)
+    floor_txt = ""
+    if floor:
+        lib = ex._launcher()
+        floor_ms = device_ms(lambda: lib.exact_topk_select_empty(
+            torch.cuda.current_stream().cuda_stream))
+        floor_txt = (f", launch floor {floor_ms:.4f} ms (an empty kernel's "
+                     "graph replay)")
     print(f"[exact] exact_topk_select {what}: ids and values bit-equal to the "
-          f"plain version{rep}; plan {plan.ways} strips of {plan.strip} a "
-          f"query; kernel {ms:.4f} ms on the card ({call_ms:.4f} ms a call "
-          f"of the wrapper), plain {plain_ms:.4f} ms, torch.topk over the "
-          f"finished distances {topk_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}, {100 * bound_ms / ms:.0f}% reached) [{card}]")
+          f"plain version{rep}; plan: {on}; kernel {ms:.4f} ms on the card "
+          f"({call_ms:.4f} ms a wrapper call); bound {bound_ms:.4f} ms "
+          f"({bound_by}, {100 * bound_ms / ms:.0f}% reached){floor_txt}; plain "
+          f"{plain_ms:.4f} ms; torch.topk over "
+          f"the finished distances {topk_ms:.4f} ms [{card}]")
     return err, ms, plain_ms, bound_ms, bound_by, topk_ms
 
 
 def phase_exact_kernel(card):
     """exact_topk_select against its plain version on the card, on the
-    product blocks of the exact paths: the serving chunk (b = 256 against
-    1,000,000 SIFT-valued rows of 128) under l2, cosine and ip, each
-    EXACT_REPEATS times over, and at k = 1, 128 and 129 (the composition's
-    route), with a mask per query, with one row of mask for every query,
-    with n_valid < N and on a ragged, unaligned N; the [ties] blocks
-    (integer rows in [0, 3], and rows of a power-of-two norm under cosine
-    with a zero query); [mesh]'s chunk (b = 8 against 131,072 rows of 96);
-    the HNSW build's batch (b = 1,024 against 65,536 rows, k = 101, a bf16
-    product). Returns {shape: hold_exact's tuple}."""
+    product blocks of the exact paths: the
+    serving chunk (b = 256 against 1,000,000 SIFT-valued rows of 128) under
+    l2, cosine and ip, each EXACT_REPEATS times over, and at k = 1, 128 and
+    129 (the composition's route), with a mask per query, with one row of
+    mask for every query, with n_valid < N and on a ragged, unaligned N;
+    one query (b = 1); the [ties] blocks (integer rows in [0, 3], and rows
+    of a power-of-two norm under cosine with a zero query); [mesh]'s chunk
+    (b = 8 against 131,072 rows of 96) beside the launch floor; the HNSW
+    build's batch (b = 1,024 against 65,536 rows, a bf16 product) at every k
+    of EXACT_HNSW_KS, k = 101 EXACT_HNSW_REPEATS times over, with a mask a
+    query and n_valid < N, and on tied integer rows in [0, 3] (ties across
+    the 101st place). Returns {shape: hold_exact's tuple}."""
     from databend_tpu_torch.ops.distance import normalize, pairwise_product
     g = torch.Generator(device="cuda").manual_seed(SEED)
     out = {}
@@ -1047,6 +1082,9 @@ def phase_exact_kernel(card):
         out["ragged"] = hold_exact(card, f"l2 b=256 N={n} (unaligned rows)",
                                    qx, ops[1], ops[2][:n].contiguous(),
                                    metric, K, n_valid=n - 5)
+        out["b=1"] = hold_exact(card, f"l2 b=1 N={N_ROWS} k={K}",
+                                ops[0][:1].contiguous(), ops[1][:1].clone(),
+                                ops[2], metric, K)
         del qx, ops, xm
     del x, q, norms
     torch.cuda.empty_cache()
@@ -1077,15 +1115,141 @@ def phase_exact_kernel(card):
     qm = torch.randn(MESH_B, MESH_DIM, generator=g, device="cuda")
     out["mesh"] = hold_exact(card, f"l2 b={MESH_B} N=131072 D={MESH_DIM}",
                              *pairwise_product(qm, xm, "l2"), "l2", K,
-                             timed=True)
+                             timed=True, floor=True)
+    del xm, qm
     xh = normalize(torch.randn(65_536, DIM, generator=g, device="cuda"))
-    out["hnsw"] = hold_exact(card, "ip b=1024 N=65536 k=101, bf16 product",
-                             *pairwise_product(xh[:1024], xh, "ip",
-                                               torch.bfloat16), "ip", 101,
-                             timed=True)
-    del xm, qm, xh
+    ops = pairwise_product(xh[:1024], xh, "ip", torch.bfloat16)
+    for k in EXACT_HNSW_KS:
+        hnsw = k == 101
+        out[("hnsw", k)] = hold_exact(
+            card, f"ip b=1024 N=65536 k={k}, bf16 product", *ops, "ip", k,
+            repeats=EXACT_HNSW_REPEATS if hnsw else 0, timed=hnsw)
+    out["hnsw"] = out[("hnsw", 101)]
+    keep = torch.rand(1024, 65_536, generator=g, device="cuda") < 0.05
+    out["hnsw keep"] = hold_exact(
+        card, "ip b=1024 N=65536 k=101, a mask a query (5% kept)", *ops,
+        "ip", 101, keep=keep)
+    out["hnsw n_valid"] = hold_exact(
+        card, "ip b=1024 N=65536 k=101, n_valid = 60,000", *ops, "ip", 101,
+        n_valid=60_000)
+    del ops, keep, xh
+    xi = torch.randint(0, 4, (65_536, DIM), generator=g,
+                       device="cuda").float()
+    out["hnsw ties"] = hold_exact(
+        card, "l2 b=1024 N=65536 k=101, integer rows in [0, 3]",
+        *pairwise_product(xi[:1024], xi, "l2"), "l2", 101,
+        repeats=EXACT_HNSW_REPEATS)
+    del xi
     torch.cuda.empty_cache()
     return out
+
+
+def exact_shapes(g):
+    """The four shapes of exact_topk_select's redesign, one at a time:
+    (name, metric, k, (qx, qq, xx)): the serving chunk at k = 10 and 128
+    (b = 256 against 1M SIFT-valued rows of 128, l2), the HNSW build's
+    batch (b = 1,024 against 65,536 unit rows, ip, bf16 product, k = 101)
+    and [mesh]'s chunk (b = 8 against 131,072 rows of 96, l2, k = 10)."""
+    from databend_tpu_torch.ops.distance import normalize, pairwise_product
+    x = torch.randint(0, 256, (N_ROWS, DIM), generator=g, device="cuda",
+                      dtype=torch.int32).float()
+    q = x[torch.randint(0, N_ROWS, (256,), generator=g, device="cuda")] \
+        + torch.randn(256, DIM, generator=g, device="cuda")
+    ops = pairwise_product(q, x, "l2")
+    del x, q
+    yield "serving l2 b=256 N=1M k=10", "l2", K, ops
+    yield "serving l2 b=256 N=1M k=128", "l2", 128, ops
+    del ops
+    xh = normalize(torch.randn(65_536, DIM, generator=g, device="cuda"))
+    yield "HNSW ip b=1024 N=65536 k=101 bf16", "ip", 101, \
+        pairwise_product(xh[:1024], xh, "ip", torch.bfloat16)
+    del xh
+    xm = torch.randn(131_072, MESH_DIM, generator=g, device="cuda")
+    qm = torch.randn(MESH_B, MESH_DIM, generator=g, device="cuda")
+    yield f"[mesh] l2 b={MESH_B} N=131072 k={K}", "l2", K, \
+        pairwise_product(qm, xm, "l2")
+
+
+def exact_iterations(plan, n):
+    """Warp iterations of one query under ``plan``: a block reads ROUND
+    positions a round, STEP a warp."""
+    from databend_tpu_torch.ops import exact_topk as ex
+    return sum(-(-min(plan.span, n - lo) // ex.ROUND) * (ex.ROUND // ex.STEP)
+               for lo in range(0, n, plan.span))
+
+
+def diagnose_exact(card):
+    """--diagnose: exact_topk_select at the four shapes of exact_shapes. A
+    build of its source with -DEXACT_TOPK_DIAG counts, per launch, the warp
+    iterations where some cell passed the coarse filter, the appends that
+    took a key, the keys taken, the cuts, the radix passes, and the blocks
+    whose threshold was still 0 at the end, beside their final thresholds'
+    mean distance and the answer's k-th; the ids of that build must equal
+    the kernel's. Then the call's two parts apart, as CUDA graph replays:
+    the memset of the thresholds and tickets (that build's
+    exact_topk_select_zero on the same scratch; none with one segment a
+    query) and the kernel's launch, the whole call less the memset."""
+    import ctypes
+    from databend_tpu_torch.ops import _cuda, exact_topk as ex
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    with tempfile.TemporaryDirectory() as tmp:
+        so = os.path.join(tmp, "libexact_diag.so")
+        subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-DEXACT_TOPK_DIAG",
+                        "-o", so, os.path.join(_cuda.CSRC_DIR,
+                                               "exact_topk_select.cu")],
+                       check=True, capture_output=True, timeout=300)
+        diag = ex._bind(ctypes.CDLL(so))
+        diag.exact_topk_select_diag.argtypes = [ctypes.c_void_p] * 2
+        diag.exact_topk_select_zero.argtypes = [ctypes.c_void_p] \
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        counts = (ctypes.c_ulonglong * 7)()
+        thr_sum = ctypes.c_double()
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        for name, metric, k, (qx, qq, xx) in exact_shapes(g):
+            b, n = qx.shape
+            args = (qx, qq, xx, metric, k, None, None)
+            want_v, want_i = ex.exact_topk_select(*args)
+            kth = float(want_v[:, -1].double().mean())
+            plan = ex._plan(b, n, sms)
+            check(diag.exact_topk_select_diag(counts, ctypes.byref(
+                thr_sum)) == 0, "--diagnose: counters unreadable")
+            _, ids = ex._launch(diag, *args, plan)
+            torch.cuda.synchronize()
+            check(diag.exact_topk_select_diag(counts, ctypes.byref(
+                thr_sum)) == 0, "--diagnose: counters unreadable")
+            check(torch.equal(ids, want_i), f"--diagnose: {name}: ids differ")
+            c = list(counts)
+            iters = b * exact_iterations(plan, n)
+            items, cold = c[5], c[6]
+            mean_thr = thr_sum.value / max(1, items - cold)
+            print(f"[diagnose] exact_topk_select {name} ({plan.ways} x "
+                  f"{plan.span} a query; {items} blocks): warp iterations "
+                  f"with a candidate {c[0]} of {iters} "
+                  f"({100 * c[0] / iters:.1f}%); appends that took a key "
+                  f"{c[1]}; keys taken {c[2]} ({c[2] / b:.1f} a query, "
+                  f"{c[2] / items:.1f} a block); cuts {c[3]} "
+                  f"({c[3] / items:.2f} a block); radix passes {c[4]}; "
+                  f"blocks ending at threshold 0: {cold}; their final "
+                  f"thresholds' mean distance {mean_thr:.6g} against the "
+                  f"answer's k-th {kth:.6g} [{card}]")
+            call_ms = device_ms(lambda: ex._launch(ex._launcher(), *args,
+                                                   plan))
+            memset_ms = 0.0
+            words = ex._scratch_words(plan, b, k)
+            if words:
+                part = torch.zeros(words, dtype=torch.int64, device="cuda")
+                memset_ms = device_ms(lambda: check(
+                    diag.exact_topk_select_zero(
+                        part.data_ptr(), b, plan.ways, k,
+                        torch.cuda.current_stream().cuda_stream) == 0,
+                    "--diagnose: the memset failed"))
+                del part
+            print(f"[diagnose] exact_topk_select {name}: call {call_ms:.4f} "
+                  f"ms, memset {memset_ms:.4f} ms, block kernel "
+                  f"{call_ms - memset_ms:.4f} ms (the call less the memset) "
+                  f"[{card}]")
+            del qx, qq, xx, want_v, want_i
+            torch.cuda.empty_cache()
 
 
 def ties_truth(x, q, metric, keep=None):
@@ -3600,6 +3764,7 @@ def main():
     if "--diagnose" in sys.argv[1:]:
         diagnose_flash(card)
         diagnose_grouped_sums(card)
+        diagnose_exact(card)
     profile = "--profile" in sys.argv[1:]
     exact_launches = phase_ties(card)
     launches, main_exact, x, queries, gt = phase_main_path(card, profile)

@@ -33,48 +33,59 @@
 // read once with 16-byte loads and dropped in registers unless it may be
 // among the k smallest.
 //
-// Design.
+// The design (block_kernel; the plan is ops/exact_topk.py:_plan):
 //  * One ordering key. Each (query, position) gets the u64 key
 //    (ord(-d) << 32) | (0xffffffff - i), ord the order-preserving map of f32
 //    bits to u32 (as csrc/impact_bm25_scores.cu:make_key). Keys are
 //    distinct, and the k largest keys are exactly lax.top_k(-d, k)'s answer,
 //    ties and the +inf cells included. No real key is 0, the empty key.
-//  * Strips. Each query's N positions are cut into `ways` strips of `strip`
-//    positions (ops/exact_topk.py:_plan: twice the warps the card holds, so
-//    that b = 1 and b = 8 fill it too); a warp takes one (query, strip) and
-//    walks it STEP positions an iteration, UNROLL 16-byte loads a lane in
-//    flight (scalar loads on a row that is not 16-byte aligned, and on the
-//    ragged end of a strip), and asks L2 for the lines PREFETCH iterations
-//    ahead, which puts more bytes in flight than the loads' registers
-//    hold.
+//  * A threshold: every key of the query's top k is at least it (0 at the
+//    start; after a cut, the k-th largest key held: the k-th key of a subset
+//    is never above the k-th of the whole). A cell whose key is below it is
+//    dropped, in any order of the cells.
 //  * A coarse filter first. Most cells cannot pass, so the stream computes
 //    no distance and no key: per cell only a coarse value monotone in the
 //    distance (l2: (qq - 2 qx) + xx, before the clamp and the square root;
 //    cosine and ip: the distance) against a bound derived from the
-//    threshold (coarse_bound), and one warp vote an iteration. Only an
-//    iteration where some cell may pass finishes its cells' distances from
-//    the coarse values (the same roundings: bit-equal) and offers their
-//    keys. (The first design formed every key, and stayed under half its
-//    bound at l2.)
-//  * Selection, as the selecting BM25 kernel does it: a threshold in a
-//    register, the same in every lane. A passing key is appended to the
-//    warp's buffer of 32 * R keys in shared memory (R = 2, 4, 8 for k up
-//    to 32, 96, 128: at least k + 32) through a ballot; a ballot that would
-//    not fit first cuts the buffer to its k largest (cut<R>: a bitonic sort
-//    in registers) and raises the threshold to the k-th. The keys are
-//    distinct, so the compare is right in any order of the cells: the k-th
-//    key of a subset is never above the k-th of the whole.
-//  * A threshold per query that the warps share: a warp that cuts raises
-//    the query's threshold in device memory (atomicMax), and every warp
-//    reads it once an iteration. No key below a warp's k-th is among the
-//    query's k largest, so the query's warps stop taking keys sooner.
-//  * Each warp writes its strip's top k (the empty key where it kept
-//    fewer) to part [b, ways, k]; phase two (merge_kernel), a block per
-//    query, merges the `ways` lists and writes vals and ids.
-// Neither phase synchronises with the host or writes a second [b, N] block.
-// At the serving shape it reaches 53% of its bound under l2 and 60% under
-// cosine and ip (PERF.md); at k = 128 and at the HNSW build's k = 101 the
-// cuts of the warps' buffers hold it (23%, 13%).
+//    threshold (coarse_bound). Only a lane where some cell may pass
+//    finishes its cells' distances from the coarse values (the same
+//    roundings: bit-equal) and forms their keys.
+//  * 16-byte loads of qx (scalar ones on a row that is not 16-byte aligned,
+//    and on a ragged end), and an L2 prefetch of the next round, which puts
+//    more bytes in flight than the loads' registers hold.
+//  * A block takes one (query, segment) of `seg` positions, `ways` segments
+//    a query (as many as keep the batch within one wave of BLOCKS_A_SM
+//    blocks an SM). Its 8 warps read the segment ROUND positions a round,
+//    STEP each, and keep one buffer of BUF keys in shared memory with one
+//    threshold.
+//  * A passing cell costs its lane: a lane with a candidate forms its
+//    keys and appends them with one shared atomic (append); a lane without
+//    one does nothing more. (A warp prefix sum instead ran slower; the
+//    first design, a warp a strip that ran a ballot for each of its lanes'
+//    cells once any cell passed, stayed at 13-23% of its bound at k = 101
+//    and 128.)
+//  * A cut is a radix select, not a sort (block_cut): 8-bit digits from the
+//    top, a 256-bin histogram a pass, a suffix sum over the bins, until the
+//    bucket that holds the k-th key is whole; then the keys at or above it
+//    are compacted to k and the threshold becomes the least of them. A
+//    round ends in one __syncthreads_or, which cuts once the buffer holds
+//    more than min(CUT_AT, CUT_K * k) keys: the first cut, after the first
+//    round, seeds the threshold with the k-th of ROUND cells, and later
+//    ones tighten it.
+//  * The output is ranked, not sorted: each of the k keys counts the keys
+//    above it.
+//  * ways > 1: a block publishes its k largest keys (part), raises the
+//    query's threshold in device memory after each cut (atomicMax; every
+//    block reads it once a round), and takes a ticket; the last block of
+//    the query merges the lists, keys at or above the query's threshold,
+//    with the same append and cut. No second launch; the thresholds and
+//    tickets are zeroed by one memset.
+// It neither synchronises with the host nor writes a second [b, N] block.
+// What holds it (PERF.md, the --diagnose counters): at the HNSW build's
+// k = 101 most rounds of a warp have a candidate (the threshold is the k-th
+// of the cells seen so far), and their appends and the cuts cost about as
+// much as the stream; at b = 8 the launch, the first round's cut of ROUND
+// keys and the merge, not bytes.
 
 #include <cuda_runtime.h>
 
@@ -82,13 +93,32 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int WARPS = 8;               // warps of a block, both kernels
+constexpr int WARPS = 8;               // warps of a block
 constexpr int THREADS = WARPS * 32;
 constexpr int UNROLL = 2;              // 16-byte loads of qx a lane has in flight
 constexpr int STEP = 32 * 4 * UNROLL;  // positions a warp reads an iteration
-constexpr int PREFETCH = 4;            // iterations ahead qx is asked into L2
 constexpr int MAX_K = 128;
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(THREADS == 256, "block_cut keeps one radix bin a thread");
+constexpr int ROUND = WARPS * STEP;    // positions a block reads a round
+constexpr int BUF = 2 * ROUND;         // keys a block's buffer holds
+constexpr int CUT_AT = BUF - ROUND;    // the most a block holds before a round
+constexpr int CUT_K = 8;               // a block cuts once it holds more than
+                                       // min(CUT_AT, CUT_K * k) keys
+constexpr int BLOCKS_A_SM = 4;         // block_kernel's blocks an SM
+
+#ifdef EXACT_TOPK_DIAG
+// Counters of a diagnostic build (-DEXACT_TOPK_DIAG; chip_smoke.py
+// --diagnose), summed over launches until read: [0] warp iterations with a
+// candidate, [1] lane appends that took a key, [2] keys taken, [3] cuts,
+// [4] radix passes, [5] blocks that ran, [6] of them ending with threshold
+// 0; and the sum of their final thresholds' distances.
+__device__ unsigned long long g_diag[7];
+__device__ double g_diag_thr;
+#define DIAG_ADD(i, v) atomicAdd(&g_diag[i], static_cast<unsigned long long>(v))
+#else
+#define DIAG_ADD(i, v) ((void)0)
+#endif
 
 enum Metric { L2 = 0, L2_SQ = 1, COSINE = 2, IP = 3 };
 
@@ -117,86 +147,15 @@ __device__ __forceinline__ u64 make_key(float v, long long i) {
   return (static_cast<u64>(u) << 32) | (0xffffffffu - static_cast<unsigned>(i));
 }
 
-// Sort the warp's 32 * R keys descending: element e = r * 32 + lane lives
-// in v[r]. A bitonic network: partners at distance j < 32 trade through a
-// shuffle, at j >= 32 within a lane's registers.
-template <int R>
-__device__ __forceinline__ void warp_sort_desc(u64 (&v)[R], int lane) {
-#pragma unroll
-  for (int size = 2; size <= 32 * R; size <<= 1) {
-#pragma unroll
-    for (int j = size >> 1; j > 0; j >>= 1) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        // a run of `size` elements is sorted descending when bit `size` of
-        // its index is clear, ascending otherwise: the last run descends
-        const bool desc = ((r * 32 + lane) & size) == 0;
-        if (j >= 32) {
-          const int pr = r ^ (j >> 5);
-          if (pr > r) {       // r holds the lower index of the pair
-            const u64 lo = v[r], hi = v[pr];
-            const bool swap = desc ? lo < hi : lo > hi;
-            v[r] = swap ? hi : lo;
-            v[pr] = swap ? lo : hi;
-          }
-        } else {
-          const u64 other = __shfl_xor_sync(FULL, v[r], j);
-          const bool lower = (lane & j) == 0;
-          const bool keep_max = lower == desc;
-          v[r] = keep_max ? (v[r] > other ? v[r] : other)
-                          : (v[r] < other ? v[r] : other);
-        }
-      }
-    }
-  }
+// The distance and the position a key holds (the key holds -d: negated
+// back exactly, signed zeros included).
+__device__ __forceinline__ float key_value(u64 key) {
+  const unsigned hi = static_cast<unsigned>(key >> 32);
+  return -__uint_as_float((hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi);
 }
 
-// Cut a buffer of `cnt` <= 32 * R distinct keys to its min(cnt, k)
-// largest, sorted descending at buf[0 ..]; returns that count. Called by
-// the whole warp.
-template <int R>
-__device__ __forceinline__ int cut(u64* buf, int cnt, int k, int lane) {
-  __syncwarp();
-  u64 v[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int e = r * 32 + lane;
-    v[r] = e < cnt ? buf[e] : 0ull;   // 0 sorts below every real key
-  }
-  warp_sort_desc<R>(v, lane);
-  const int keep = cnt < k ? cnt : k;
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    if (r * 32 + lane < keep) buf[r * 32 + lane] = v[r];
-  __syncwarp();
-  return keep;
-}
-
-// cut<R>, or the 32-key sort where the buffer holds no more (cnt is the
-// same in every lane).
-template <int R>
-__device__ __forceinline__ int cut_fit(u64* buf, int cnt, int k, int lane) {
-  return cnt <= 32 ? cut<1>(buf, cnt, k, lane) : cut<R>(buf, cnt, k, lane);
-}
-
-// Offer one key a lane (0: none) to a warp's buffer of 32 * R keys. `cnt`
-// and `thr` are the same in every lane; 32 * R >= k + 32, so after a cut a
-// whole ballot fits, and a cut always leaves k keys. A cut raises `shared`,
-// the query's threshold in device memory, where it is given.
-template <int R>
-__device__ __forceinline__ void offer(u64 key, u64* buf, int& cnt, u64& thr,
-                                      int k, int lane, u64* shared) {
-  unsigned mask = __ballot_sync(FULL, key > thr);
-  if (mask == 0) return;
-  if (cnt + __popc(mask) > 32 * R) {
-    cnt = cut<R>(buf, cnt, k, lane);
-    thr = buf[k - 1] > thr ? buf[k - 1] : thr;
-    if (shared != nullptr && lane == 0) atomicMax(shared, thr);
-    mask = __ballot_sync(FULL, key > thr);
-  }
-  if (key > thr) buf[cnt + __popc(mask & ((1u << lane) - 1u))] = key;
-  cnt += __popc(mask);
+__device__ __forceinline__ long long key_pos(u64 key) {
+  return static_cast<long long>(0xffffffffu - static_cast<unsigned>(key));
 }
 
 // The largest coarse value whose cell may still pass the threshold `thr`:
@@ -208,18 +167,16 @@ template <int METRIC>
 __device__ __forceinline__ float coarse_bound(u64 thr) {
   const float INF = __int_as_float(0x7f800000);
   if (thr == 0) return INF;                  // nothing kept yet
-  const unsigned hi = static_cast<unsigned>(thr >> 32);
-  const float d =
-      -__uint_as_float((hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi);
+  const float d = key_value(thr);
   if (METRIC != L2) return d;
   const float up = nextafterf(d, INF);
   return __fmul_ru(up, up);
 }
 
 // The coarse values of one lane's four positions i .. i + 3: `nin` of them
-// in the strip, `nok` before n_valid. 16-byte loads where the row allows.
+// in the span, `nok` before n_valid. 16-byte loads where the row allows.
 // Masked cells are +inf (they pass only while the threshold is +inf, and
-// finish(+inf) is +inf); cells past the strip NaN (they never pass).
+// finish(+inf) is +inf); cells past the span NaN (they never pass).
 template <int METRIC>
 __device__ __forceinline__ void coarse4(const float* row, const float* xx,
                                         const unsigned char* krow, float qq,
@@ -256,155 +213,309 @@ __device__ __forceinline__ void coarse4(const float* row, const float* xx,
   }
 }
 
-// Warp (blockIdx.x * WARPS + warp) takes strip s of query q: item
-// q * ways + s. See the top of the file.
-template <int R, int METRIC>
-__global__ void __launch_bounds__(THREADS, R == 8 ? 3 : 4)
-select_kernel(const float* __restrict__ qx, const float* __restrict__ qq,
-              const float* __restrict__ xx, const unsigned char* __restrict__ keep,
-              long long keep_ld, long long n, long long n_valid, int b, int k,
-              long long strip, int ways, int vec, u64* __restrict__ part,
-              u64* __restrict__ shared_thr) {
-  constexpr int CAP = 32 * R;
+// ------------------------------------------------------------- the block
+// A block's shared state: the buffer and its count, the threshold (every
+// key of the query's top k is at least thr), and the radix select's
+// scratch.
+struct BlockShared {
+  u64 buf[BUF];
+  u64 sel[MAX_K];
+  u64 thr;
+  u64 kth;
+  int hist[256];
+  int wsum[WARPS];
+  int cnt, nsel, digit, need, bucket, last;
+};
+
+// Append a lane's nonzero keys (8 at most) to the block's buffer: one
+// shared atomic for the lane's count, then its stores. The caller keeps
+// the room: at most cut_at <= CUT_AT keys before a round, ROUND keys a
+// round. Returns whether the buffer now holds more than cut_at keys (true
+// in some lane exactly when it does: the lane that added last sees the
+// final count).
+__device__ __forceinline__ bool append(BlockShared& s, const u64 (&key)[8],
+                                       int cut_at) {
+  int n = 0;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) n += key[t] != 0ull;
+  if (n == 0) return false;
+  int at = atomicAdd(&s.cnt, n);
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+    if (key[t] != 0ull) s.buf[at++] = key[t];
+  DIAG_ADD(1, 1);
+  DIAG_ADD(2, n);
+  return at > cut_at;
+}
+
+// Cut the block's buffer (cnt > k distinct keys) to its k largest keys, in
+// no order, and raise the threshold to the least of them. A radix select:
+// 8-bit digits from the top; a pass counts the digits of the keys that
+// share the prefix chosen so far (plain shared atomics: on the card they
+// beat combining a warp's equal digits with __match_any_sync first), finds
+// by a suffix sum over the 256 bins (one a thread) the digit whose bucket
+// holds the k-th key, and stops once that bucket is wholly among the k.
+// The keys whose top bits are at or above the prefix are then exactly the
+// k. Called by every thread after a barrier; ends with one.
+__device__ void block_cut(BlockShared& s, int k, int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const int cnt = s.cnt;
+  u64 prefix = 0, pmask = 0;
+  int need = k;       // keys still wanted from the bucket of `prefix`
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    s.hist[tid] = 0;
+    __syncthreads();
+    for (int i = tid; i < cnt; i += THREADS) {
+      const u64 key = s.buf[i];
+      if ((key & pmask) == prefix)
+        atomicAdd(&s.hist[(key >> shift) & 0xffu], 1);
+    }
+    __syncthreads();
+    // suf: the keys of the bucket whose digit is at least tid's
+    const int h = s.hist[tid];
+    int suf = h;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_down_sync(FULL, suf, o);
+      if (lane + o < 32) suf += v;
+    }
+    if (lane == 0) s.wsum[warp] = suf;
+    __syncthreads();
+    for (int w = warp + 1; w < WARPS; ++w) suf += s.wsum[w];
+    if (suf >= need && suf - h < need) {
+      s.digit = tid;
+      s.need = need - (suf - h);
+      s.bucket = h;
+    }
+    __syncthreads();
+    DIAG_ADD(4, tid == 0);
+    prefix |= static_cast<u64>(s.digit) << shift;
+    pmask |= 0xffull << shift;
+    need = s.need;
+    if (s.bucket == need) break;        // the same in every thread
+  }
+  if (tid == 0) {
+    s.nsel = 0;
+    s.kth = ~0ull;
+    DIAG_ADD(3, 1);
+  }
+  __syncthreads();
+  u64 least = ~0ull;     // the least key this thread kept
+  for (int i = tid; i - tid < cnt; i += THREADS) {
+    u64 key = 0ull;
+    bool in = false;
+    if (i < cnt) {
+      key = s.buf[i];
+      in = (key & pmask) >= prefix;
+    }
+    const unsigned m = __ballot_sync(FULL, in);
+    if (m == 0) continue;
+    int base = 0;
+    if (lane == 0) base = atomicAdd(&s.nsel, __popc(m));
+    base = __shfl_sync(FULL, base, 0);
+    if (in) {
+      const int at = base + __popc(m & ((1u << lane) - 1u));
+      if (at < MAX_K) s.sel[at] = key;
+      least = key < least ? key : least;
+    }
+  }
+  // one shared atomic a warp
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const u64 other = __shfl_xor_sync(FULL, least, o);
+    least = other < least ? other : least;
+  }
+  if (lane == 0 && least != ~0ull) atomicMin(&s.kth, least);
+  __syncthreads();
+  for (int j = tid; j < k; j += THREADS) s.buf[j] = s.sel[j];
+  if (tid == 0) {
+    s.cnt = k;
+    if (s.kth > s.thr) s.thr = s.kth;
+  }
+  __syncthreads();
+}
+
+// Write the block's cnt (= k) keys to row q of vals and ids, each at its
+// rank: the number of keys above it.
+__device__ __forceinline__ void write_ranked(const BlockShared& s, int k,
+                                             int q, float* vals,
+                                             long long* ids, int tid) {
+  const int cnt = s.cnt;
+  for (int j = tid; j < cnt; j += THREADS) {
+    const u64 key = s.buf[j];
+    int rank = 0;
+    for (int i = 0; i < cnt; ++i) rank += s.buf[i] > key;
+    const size_t at = static_cast<size_t>(q) * k + rank;
+    vals[at] = key_value(key);
+    ids[at] = key_pos(key);
+  }
+}
+
+// Block (q * ways + g) takes segment g of query q. See the top of the file.
+// ways > 1: part holds the blocks' lists (k keys each) and their counts;
+// q_thrs and tickets a word each per query, zeroed before the launch.
+template <int METRIC>
+__global__ void __launch_bounds__(THREADS, BLOCKS_A_SM)
+block_kernel(const float* __restrict__ qx, const float* __restrict__ qq,
+             const float* __restrict__ xx,
+             const unsigned char* __restrict__ keep, long long keep_ld,
+             long long n, long long n_valid, int k, long long seg, int ways,
+             int vec, u64* __restrict__ part, u64* __restrict__ part_cnt,
+             u64* __restrict__ q_thrs, u64* __restrict__ tickets,
+             float* __restrict__ vals, long long* __restrict__ ids) {
   constexpr bool NORMS = METRIC == L2 || METRIC == L2_SQ;
-  __shared__ u64 s_buf[WARPS][CAP];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long item = static_cast<long long>(blockIdx.x) * WARPS + warp;
-  if (item >= static_cast<long long>(b) * ways) return;   // the whole warp
-  const int q = static_cast<int>(item / ways);
-  const long long lo = (item % ways) * strip;
-  const long long end = lo + strip < n ? lo + strip : n;
+  __shared__ BlockShared s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = blockIdx.x / ways;
+  const long long lo = static_cast<long long>(blockIdx.x % ways) * seg;
+  const long long end = lo + seg < n ? lo + seg : n;
   const float* row = qx + static_cast<size_t>(q) * n;
   const unsigned char* krow =
       keep != nullptr ? keep + static_cast<size_t>(q) * keep_ld : nullptr;
   const float qqv = NORMS ? qq[q] : 0.0f;
-  u64* buf = s_buf[warp];
-  u64* q_thr = shared_thr + q;
-  int cnt = 0;
-  u64 thr = 0;                // every real key is above 0
-  for (long long base = lo; base < end; base += STEP) {
-    // a line of 32 cells a lane, PREFETCH iterations ahead: more bytes in
-    // flight than the registers of the loads hold
-    if (PREFETCH > 0 && lane < STEP / 32) {
-      const long long p = base + PREFETCH * STEP + lane * 32;
+  u64* q_thr = ways > 1 ? q_thrs + q : nullptr;
+  const int cut_at = CUT_K * k < CUT_AT ? CUT_K * k : CUT_AT;
+  if (tid == 0) {
+    s.cnt = 0;
+    s.thr = 0;
+  }
+  __syncthreads();
+  for (long long base = lo; base < end; base += ROUND) {
+    const long long wb = base + warp * STEP;
+    // a line of 32 cells a lane, the next round's
+    if (lane < STEP / 32) {
+      const long long p = wb + ROUND + lane * 32;
       if (p < end) asm volatile("prefetch.global.L2 [%0];" ::"l"(row + p));
     }
-    // what the query's other warps found, in flight with the loads
-    const u64 seen = __ldcg(q_thr);
+    u64 thr = s.thr;
+    if (q_thr != nullptr) {
+      const u64 seen = __ldcg(q_thr);
+      thr = seen > thr ? seen : thr;
+    }
     float c[UNROLL][4];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const long long i = base + (u * 32 + lane) * 4;
+      const long long i = wb + (u * 32 + lane) * 4;
       const long long in = end - i, ok = n_valid - i;
       coarse4<METRIC>(row, xx, krow, qqv, i,
                       in <= 0 ? 0 : in >= 4 ? 4 : static_cast<int>(in),
                       ok <= 0 ? 0 : ok >= 4 ? 4 : static_cast<int>(ok),
                       vec != 0, c[u]);
     }
-    thr = seen > thr ? seen : thr;
     const float bound = coarse_bound<METRIC>(thr);
     bool maybe = false;
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u)
 #pragma unroll
       for (int e = 0; e < 4; ++e) maybe |= c[u][e] <= bound;
-    if (!__any_sync(FULL, maybe)) continue;
-    // some cell may pass: offer every cell's exact key, 32 at a time (one
-    // copy of the offer and its sort: the cell is picked by selects)
-#pragma unroll 1
-    for (int j = 0; j < 4 * UNROLL; ++j) {
-      float cj = 0.0f;
+#ifdef EXACT_TOPK_DIAG
+    if (__any_sync(FULL, maybe) && lane == 0) DIAG_ADD(0, 1);
+#endif
+    bool full = false;
+    if (maybe) {
+      u64 key[4 * UNROLL];
 #pragma unroll
-      for (int t = 0; t < 4 * UNROLL; ++t)
-        if (t == j) cj = c[t >> 2][t & 3];
-      const long long i = base + ((j >> 2) * 32 + lane) * 4 + (j & 3);
-      offer<R>(cj == cj ? make_key(-finish<METRIC>(cj), i) : 0ull, buf, cnt,
-               thr, k, lane, q_thr);
+      for (int t = 0; t < 4 * UNROLL; ++t) {
+        const float ct = c[t >> 2][t & 3];
+        const long long i = wb + ((t >> 2) * 32 + lane) * 4 + (t & 3);
+        const u64 kt = ct <= bound ? make_key(-finish<METRIC>(ct), i) : 0ull;
+        key[t] = kt >= thr ? kt : 0ull;
+      }
+      full = append(s, key, cut_at);
+    }
+    if (__syncthreads_or(full)) {
+      block_cut(s, k, tid);
+      if (q_thr != nullptr && tid == 0) atomicMax(q_thr, s.thr);
     }
   }
-  cnt = cut_fit<R>(buf, cnt, k, lane);
-  u64* out = part + static_cast<size_t>(item) * k;
-  for (int j = lane; j < k; j += 32) out[j] = j < cnt ? buf[j] : 0ull;
-}
-
-// Phase two: block q merges query q's `ways` lists of k keys (8 warps
-// offer them in turns, warp 0 takes the others' top k) and unpacks its k
-// largest keys to (vals, ids).
-template <int R>
-__global__ void __launch_bounds__(THREADS)
-merge_kernel(const u64* __restrict__ part, int ways, int k,
-             float* __restrict__ vals, long long* __restrict__ ids) {
-  constexpr int CAP = 32 * R;
-  __shared__ u64 s_buf[WARPS][CAP];
-  __shared__ int s_cnt[WARPS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int q = blockIdx.x;
-  u64* buf = s_buf[warp];
-  const u64* src = part + static_cast<size_t>(q) * ways * k;
-  const long long total = static_cast<long long>(ways) * k;
-  u64 thr = 0;
-  int cnt = 0;
-  for (long long at = static_cast<long long>(warp) * 32 + lane;
-       at - lane < total; at += WARPS * 32)
-    offer<R>(at < total ? __ldg(src + at) : 0ull, buf, cnt, thr, k, lane,
-             nullptr);
-  cnt = cut<R>(buf, cnt, k, lane);
-  if (lane == 0) s_cnt[warp] = cnt;
+  // the last round ended in a barrier
+  if (s.cnt > k) {
+    block_cut(s, k, tid);
+    if (q_thr != nullptr && tid == 0) atomicMax(q_thr, s.thr);
+  }
+#ifdef EXACT_TOPK_DIAG
+  if (tid == 0) {
+    DIAG_ADD(5, 1);
+    DIAG_ADD(6, s.thr == 0);
+    if (s.thr != 0)
+      atomicAdd(&g_diag_thr, static_cast<double>(key_value(s.thr)));
+  }
+#endif
+  if (ways == 1) {
+    write_ranked(s, k, q, vals, ids, tid);
+    return;
+  }
+  // publish this segment's list, then take a ticket
+  const int cnt = s.cnt;
+  u64* mine = part + static_cast<size_t>(blockIdx.x) * k;
+  for (int j = tid; j < cnt; j += THREADS) mine[j] = s.buf[j];
+  if (tid == 0) part_cnt[blockIdx.x] = static_cast<u64>(cnt);
+  __threadfence();
   __syncthreads();
-  if (warp != 0) return;
-  if (cnt == k) thr = buf[k - 1];
-  for (int w = 1; w < WARPS; ++w) {
-    const int m = s_cnt[w];
-    for (int j = 0; j < m; j += 32)
-      offer<R>(j + lane < m ? s_buf[w][j + lane] : 0ull, buf, cnt, thr, k,
-               lane, nullptr);
+  if (tid == 0) s.last = atomicAdd(tickets + q, 1ull) == ways - 1ull;
+  __syncthreads();
+  if (!s.last) return;
+  __threadfence();
+  // the last block of query q merges the query's lists: the keys at or
+  // above the query's threshold, ROUND entries a round
+  u64 thr = __ldcg(q_thr);
+  thr = s.thr > thr ? s.thr : thr;
+  if (tid == 0) s.cnt = 0;
+  __syncthreads();
+  const long long total = static_cast<long long>(ways) * k;
+  const u64* lists = part + static_cast<size_t>(q) * ways * k;
+  const u64* counts = part_cnt + static_cast<size_t>(q) * ways;
+  for (long long e0 = 0; e0 < total; e0 += ROUND) {
+    u64 key[4 * UNROLL];
+    bool any = false;
+#pragma unroll
+    for (int t = 0; t < 4 * UNROLL; ++t) {
+      const long long e = e0 + warp * STEP + t * 32 + lane;
+      u64 kt = 0ull;
+      if (e < total && static_cast<u64>(e % k) < __ldcg(counts + e / k))
+        kt = __ldcg(lists + e);
+      key[t] = kt >= thr ? kt : 0ull;
+      any |= key[t] != 0ull;
+    }
+    const bool full = any && append(s, key, cut_at);
+    if (__syncthreads_or(full)) block_cut(s, k, tid);
   }
-  // k <= N: the strips held at least k real keys between them
-  cut<R>(buf, cnt, k, lane);
-  for (int j = lane; j < k; j += 32) {
-    const size_t at = static_cast<size_t>(q) * k + j;
-    const u64 key = buf[j];
-    const unsigned hi = static_cast<unsigned>(key >> 32);
-    // the key holds -d: negate back (exact, signed zeros included)
-    vals[at] = -__uint_as_float((hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi);
-    ids[at] = static_cast<long long>(0xffffffffu - static_cast<unsigned>(key));
-  }
+  if (s.cnt > k) block_cut(s, k, tid);
+  write_ranked(s, k, q, vals, ids, tid);
 }
 
-// The sort width of a warp's buffer: 32 * r keys, at least k + 32.
-int select_r(int k) { return k <= 32 ? 2 : k <= 96 ? 4 : 8; }
+__global__ void empty_kernel() {}
 
-template <int R, int METRIC>
-int launch(const float* qx, const float* qq, const float* xx,
-           const unsigned char* keep, long long keep_ld, long long n,
-           long long n_valid, int b, int k, long long strip, int ways, int vec,
-           u64* part, float* vals, long long* ids, cudaStream_t stream) {
-  u64* shared_thr = part + static_cast<size_t>(b) * ways * k;
-  cudaError_t err = cudaMemsetAsync(shared_thr, 0, b * sizeof(u64), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long items = static_cast<long long>(b) * ways;
-  const unsigned blocks = static_cast<unsigned>((items + WARPS - 1) / WARPS);
-  select_kernel<R, METRIC><<<blocks, THREADS, 0, stream>>>(
-      qx, qq, xx, keep, keep_ld, n, n_valid, b, k, strip, ways, vec, part,
-      shared_thr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  merge_kernel<R><<<b, THREADS, 0, stream>>>(part, ways, k, vals, ids);
-  return static_cast<int>(cudaGetLastError());
+// ------------------------------------------------------------- launches
+// The scratch of a call with ways > 1, in 8-byte words: the lists [b *
+// ways * k], their counts [b * ways], then the thresholds [b] and tickets
+// [b]. The thresholds and tickets start each call at zero.
+u64* thresholds(u64* part, int b, int ways, int k) {
+  return part + static_cast<size_t>(b) * ways * (k + 1);
+}
+
+cudaError_t zero_thresholds(u64* part, int b, int ways, int k,
+                            cudaStream_t stream) {
+  return cudaMemsetAsync(thresholds(part, b, ways, k), 0, 2 * b * sizeof(u64),
+                         stream);
 }
 
 template <int METRIC>
-int launch_r(int k, const float* qx, const float* qq, const float* xx,
-             const unsigned char* keep, long long keep_ld, long long n,
-             long long n_valid, int b, long long strip, int ways, int vec,
-             u64* part, float* vals, long long* ids, cudaStream_t stream) {
-  auto go = launch<8, METRIC>;
-  if (select_r(k) == 2) go = launch<2, METRIC>;
-  else if (select_r(k) == 4) go = launch<4, METRIC>;
-  return go(qx, qq, xx, keep, keep_ld, n, n_valid, b, k, strip, ways, vec,
-            part, vals, ids, stream);
+int launch(const float* qx, const float* qq, const float* xx,
+           const unsigned char* keep, long long keep_ld, long long n,
+           long long n_valid, int b, int k, long long seg, int ways, int vec,
+           u64* part, float* vals, long long* ids, cudaStream_t stream) {
+  u64* counts = part + static_cast<size_t>(b) * ways * k;
+  u64* thrs = thresholds(part, b, ways, k);
+  if (ways > 1) {
+    const cudaError_t err = zero_thresholds(part, b, ways, k, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  block_kernel<METRIC><<<static_cast<unsigned>(b) * ways, THREADS, 0,
+                         stream>>>(qx, qq, xx, keep, keep_ld, n, n_valid, k,
+                                   seg, ways, vec, part, counts, thrs,
+                                   thrs + b, vals, ids);
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int ERR_SHAPE = -1;
@@ -417,49 +528,76 @@ extern "C" {
 // ERR_SHAPE. qx [b, N] f32 contiguous; qq [b] and xx [N] f32 (read for
 // metric 0 = l2 and 1 = l2_sq; 2 = cosine, 3 = ip); keep NULL or a byte
 // per cell with row stride keep_ld (0: one row for every query); columns
-// at or past n_valid score +inf. (strip, ways) is the plan
-// (ops/exact_topk.py:_plan); vec: qx rows, xx and keep may be read 16 (keep:
-// 4) bytes at a time (N % 4 == 0 and aligned pointers). part: scratch of
-// b * (ways * k + 1) 8-byte words; vals [b, k] f32 and ids [b, k] int64.
-// 1 <= k <= min(MAX_K, N), N < 2^32.
+// at or past n_valid score +inf. (seg, ways) is the plan
+// (ops/exact_topk.py:_plan): seg a multiple of ROUND, ways = ceil(N /
+// seg). vec: qx rows, xx and keep may be read 16 (keep: 4) bytes at a
+// time (N % 4 == 0 and aligned pointers). part: scratch of b * (ways * (k
+// + 1) + 2) 8-byte words with ways > 1 (NULL allowed with ways = 1); vals
+// [b, k] f32 and ids [b, k] int64. 1 <= k <= min(MAX_K, N), N < 2^32.
 int exact_topk_select_launch(const void* qx, const void* qq, const void* xx,
                              const void* keep, long long keep_ld, int metric,
                              long long n, long long n_valid, int b, int k,
-                             long long strip, int ways, int vec, void* part,
+                             long long seg, int ways, int vec, void* part,
                              void* vals, void* ids, void* stream) {
   const bool norms = metric == L2 || metric == L2_SQ;
   if (metric < L2 || metric > IP || n < 1 || n >= (1ll << 32) || b < 1 ||
-      k < 1 || k > MAX_K || k > n || n_valid < 0 || n_valid > n ||
-      strip < 1 || strip % STEP != 0 || ways < 1 ||
-      (n + strip - 1) / strip != ways ||
-      (static_cast<long long>(b) * ways + WARPS - 1) / WARPS > 0x7fffffffll ||
-      (keep_ld != 0 && keep_ld != n) || (norms && (qq == nullptr ||
-                                                   xx == nullptr)))
+      k < 1 || k > MAX_K || k > n || n_valid < 0 || n_valid > n || seg < 1 ||
+      seg % ROUND != 0 || ways < 1 || (n + seg - 1) / seg != ways ||
+      static_cast<long long>(b) * ways > 0x7fffffffll ||
+      (keep_ld != 0 && keep_ld != n) ||
+      (norms && (qq == nullptr || xx == nullptr)) ||
+      (ways > 1 && part == nullptr))
     return ERR_SHAPE;
-  const float* q = static_cast<const float*>(qx);
-  const float* a = static_cast<const float*>(qq);
-  const float* x = static_cast<const float*>(xx);
-  const unsigned char* kp = static_cast<const unsigned char*>(keep);
-  u64* pa = static_cast<u64*>(part);
-  float* va = static_cast<float*>(vals);
-  long long* ix = static_cast<long long*>(ids);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto go = launch_r<IP>;
-  if (metric == L2) go = launch_r<L2>;
-  else if (metric == L2_SQ) go = launch_r<L2_SQ>;
-  else if (metric == COSINE) go = launch_r<COSINE>;
-  return go(k, q, a, x, kp, keep_ld, n, n_valid, b, strip, ways, vec, pa, va,
-            ix, st);
+  auto go = launch<IP>;
+  if (metric == L2) go = launch<L2>;
+  else if (metric == L2_SQ) go = launch<L2_SQ>;
+  else if (metric == COSINE) go = launch<COSINE>;
+  return go(static_cast<const float*>(qx), static_cast<const float*>(qq),
+            static_cast<const float*>(xx),
+            static_cast<const unsigned char*>(keep), keep_ld, n, n_valid, b,
+            k, seg, ways, vec, static_cast<u64*>(part),
+            static_cast<float*>(vals), static_cast<long long*>(ids),
+            static_cast<cudaStream_t>(stream));
 }
 
-// The largest k, and the positions a warp reads an iteration: the plan's
-// strips are multiples of it (ops/exact_topk.py must agree).
+// An empty kernel on `stream`: the launch floor a call cannot go under.
+int exact_topk_select_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The largest k, and the positions a block reads a round: the plan's
+// segments are multiples of it (ops/exact_topk.py must agree).
 int exact_topk_select_max_k() { return MAX_K; }
-int exact_topk_select_step() { return STEP; }
+int exact_topk_select_round() { return ROUND; }
 
 const char* exact_topk_select_error_string(int err) {
   if (err == ERR_SHAPE) return "shape outside the kernel's contract";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef EXACT_TOPK_DIAG
+// Copy the counters (7 words) and the threshold sum out, then zero them;
+// 0 or a cudaError_t. Synchronises with the device.
+int exact_topk_select_diag(unsigned long long* out, double* thr_sum) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_diag, sizeof(g_diag));
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(thr_sum, g_diag_thr, sizeof(double));
+  static const unsigned long long zeros[7] = {};
+  static const double zero = 0.0;
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(g_diag, zeros, sizeof(zeros));
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(g_diag_thr, &zero, sizeof(double));
+  return static_cast<int>(err);
+}
+
+// The memset alone that a call with ways > 1 makes before its launch, on
+// the same scratch: for timing it apart from the kernel.
+int exact_topk_select_zero(void* part, int b, int ways, int k, void* stream) {
+  return static_cast<int>(zero_thresholds(static_cast<u64*>(part), b, ways, k,
+                                          static_cast<cudaStream_t>(stream)));
+}
+#endif
 
 }  // extern "C"

@@ -24,10 +24,13 @@ On a CUDA tensor the wrapper launches ``csrc/exact_topk_select.cu`` or
 raises; on a CPU tensor it runs the plain version
 ``_exact_topk_select_plain``: ``finish_distance``, the masks and
 ``ops.topk.topk_smallest_lowest_index``. Above ``MAX_K`` the card runs that
-same composition (a route by shape, like ``impact_bm25_topk``'s: the
-kernel's buffers hold at most 128 keys a warp); nothing falls back on a
-failure. l1 has no product form: :func:`exact_topk`, the function the exact
-paths call, routes it to ``l1_distance`` and the tie-rule top-k.
+same composition (a route by shape, like ``impact_bm25_topk``'s: a cut
+keeps at most 128 keys); nothing falls back on a failure. l1 has no
+product form: :func:`exact_topk`, the function the exact paths call,
+routes it to ``l1_distance`` and the tie-rule top-k.
+
+The kernel runs a block of eight warps a (query, segment) with one buffer
+of keys; ``_plan`` cuts each query's row into segments.
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ from .topk import topk_smallest_lowest_index
 
 MAX_K = 128               # the kernel's largest k (csrc MAX_K)
 STEP = 256                # positions a warp reads an iteration (csrc STEP)
-MIN_STRIP = 8 * STEP      # the shortest strip the plan cuts
-WARPS_A_SM = 32           # warps an SM holds (four blocks of eight)
-WAVES = 2                 # the plan's warps: this many times what fits
+ROUND = 8 * STEP          # positions a block reads a round (csrc ROUND)
+BLOCKS_A_SM = 4           # blocks an SM holds (csrc launch bounds)
+MIN_SEGMENT = 4 * ROUND   # the shortest segment the plan cuts
 SMS = 132                 # SMs of an H100 (the plan reads the card's)
 METRICS = {"l2": 0, "l2_sq": 1, "cosine": 2, "ip": 3}
 INF = float("inf")
@@ -54,20 +57,27 @@ INF = float("inf")
 
 class Plan(NamedTuple):
     """How the kernel runs a shape: each query's N positions in ``ways``
-    strips of ``strip`` positions (a multiple of ``STEP``), one warp a
-    (query, strip)."""
-    strip: int
+    segments of ``span`` positions (a multiple of ``ROUND``), a block of
+    eight warps each."""
+    span: int
     ways: int
 
 
 def _plan(b: int, n: int, sms: int = SMS) -> Plan:
-    """As many strips a query as give ``WAVES`` times the warps the card
-    holds, none shorter than ``MIN_STRIP`` (nor more than one for a row of
-    at most that many)."""
-    want = -(-WAVES * sms * WARPS_A_SM // b)
-    ways = max(1, min(want, -(-n // MIN_STRIP)))
-    strip = -(-(-(-n // ways)) // STEP) * STEP
-    return Plan(strip, -(-n // strip))
+    """As many segments a query as keep the batch within the blocks the
+    card holds at once (one wave: a block is a long stream, and a second,
+    partial wave would idle the rest of the card), at least one and none
+    shorter than ``MIN_SEGMENT``."""
+    ways = max(1, min(sms * BLOCKS_A_SM // b, -(-n // MIN_SEGMENT)))
+    seg = -(-(-(-n // ways)) // ROUND) * ROUND
+    return Plan(seg, -(-n // seg))
+
+
+def _scratch_words(plan: Plan, b: int, k: int) -> int:
+    """8-byte words of the kernel's scratch: with ways > 1 the segments'
+    lists and counts, a threshold and a ticket per query; none for ways =
+    1."""
+    return 0 if plan.ways == 1 else b * (plan.ways * (k + 1) + 2)
 
 
 def _check(qx, qq, xx, metric, k, n_valid, keep):
@@ -150,31 +160,51 @@ def exact_topk_select(qx: torch.Tensor, qq: Optional[torch.Tensor],
     if qx.device.type != "cuda":
         raise ValueError(f"exact_topk_select: no kernel for {qx.device}")
     b, n = qx.shape
+    vals, pos = _launch(_launcher(), qx, qq, xx, metric, k, n_valid, keep,
+                        _plan(b, n, _cuda.sm_count(qx.device)))
+    exact_topk_select.launches += 1
+    return vals, pos
+
+
+def _check_plan(plan: Plan, b: int, n: int):
+    """Raise unless the kernel takes ``plan`` for a ``[b, n]`` block (the
+    C launcher checks the same): segments of whole rounds (ROUND
+    positions) that cover a row with ``ways`` of them, and a grid of ``b x
+    ways`` blocks that fits."""
+    if plan.span < 1 or plan.span % ROUND \
+            or plan.ways != -(-n // plan.span) or b * plan.ways >= 1 << 31:
+        raise ValueError(f"exact_topk_select: no kernel plan {plan} for a "
+                         f"[{b}, {n}] block")
+
+
+def _launch(lib, qx, qq, xx, metric, k, n_valid, keep, plan):
+    """Launch ``lib``'s kernel on checked CUDA operands under ``plan``;
+    returns (vals, positions)."""
+    b, n = qx.shape
+    _check_plan(plan, b, n)
     dev = qx.device
-    plan = _plan(b, n, _cuda.sm_count(dev))
-    lib = _launcher()
-    # the strips' top k per query, then a threshold per query
-    part = torch.empty(b * (plan.ways * k + 1), dtype=torch.int64,
-                       device=dev)
+    words = _scratch_words(plan, b, k)
+    part = torch.empty(words, dtype=torch.int64, device=dev) if words \
+        else None
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     pos = torch.empty((b, k), dtype=torch.int64, device=dev)
     ptrs = [t.data_ptr() for t in (qx, xx) if t is not None]
     vec = n % 4 == 0 and all(p % 16 == 0 for p in ptrs) \
         and (keep is None or keep.data_ptr() % 4 == 0)
     keep_ld = 0 if keep is None or keep.shape[0] == 1 else n
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.exact_topk_select_launch(
-            qx.data_ptr(), None if qq is None else qq.data_ptr(),
+    args = (qx.data_ptr(), None if qq is None else qq.data_ptr(),
             None if xx is None else xx.data_ptr(),
             None if keep is None else keep.data_ptr(), keep_ld,
             METRICS[metric], n, n if n_valid is None else min(n_valid, n), b,
-            k, plan.strip, plan.ways, int(vec), part.data_ptr(),
-            vals.data_ptr(), pos.data_ptr(), stream)
+            k, plan.span, plan.ways, int(vec),
+            None if part is None else part.data_ptr(), vals.data_ptr(),
+            pos.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.exact_topk_select_launch(*args, stream)
     if err:
         msg = lib.exact_topk_select_error_string(err).decode()
         raise RuntimeError(f"exact_topk_select launch failed: {msg} ({err})")
-    exact_topk_select.launches += 1
     return vals, pos
 
 
@@ -201,26 +231,31 @@ def exact_topk(q: torch.Tensor, x: torch.Tensor, k: int, metric: str,
 
 
 # the C interface of csrc/exact_topk_select.cu: qx, qq, xx, keep; keep's row
-# stride; metric; N, n_valid; b, k; strip; ways; vec; part, vals, ids;
+# stride; metric; N, n_valid; b, k; segment; ways; vec; part, vals, ids;
 # stream
 _LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int] \
     + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_longlong] \
     + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+_HANDSHAKE = {"exact_topk_select_max_k": MAX_K,
+              "exact_topk_select_round": ROUND}
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a build of the kernel's source and check
+    that it agrees with this module on MAX_K and ROUND."""
+    lib.exact_topk_select_launch.argtypes = _LAUNCH_ARGTYPES
+    lib.exact_topk_select_empty.argtypes = [ctypes.c_void_p]
+    lib.exact_topk_select_error_string.argtypes = [ctypes.c_int]
+    lib.exact_topk_select_error_string.restype = ctypes.c_char_p
+    for name, want in _HANDSHAKE.items():
+        getattr(lib, name).argtypes = []
+        if getattr(lib, name)() != want:
+            raise RuntimeError("csrc/exact_topk_select.cu and "
+                               f"ops/exact_topk.py disagree on {name}")
+    return lib
 
 
 @functools.cache
 def _launcher() -> ctypes.CDLL:
     """The kernel's library, built at first use, with its C signatures."""
-    lib = _cuda.load("exact_topk_select")
-    lib.exact_topk_select_launch.argtypes = _LAUNCH_ARGTYPES
-    lib.exact_topk_select_launch.restype = ctypes.c_int
-    lib.exact_topk_select_error_string.argtypes = [ctypes.c_int]
-    lib.exact_topk_select_error_string.restype = ctypes.c_char_p
-    for name in ("exact_topk_select_max_k", "exact_topk_select_step"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
-    if lib.exact_topk_select_max_k() != MAX_K \
-            or lib.exact_topk_select_step() != STEP:
-        raise RuntimeError("csrc/exact_topk_select.cu and ops/exact_topk.py "
-                           "disagree on MAX_K or STEP")
-    return lib
+    return _bind(_cuda.load("exact_topk_select"))

@@ -406,6 +406,180 @@ def test_strip_then_merge_selection_is_the_tie_rule_top_k(k, strip, order):
         assert gv.tobytes() == wv[q].numpy().tobytes()
 
 
+class _Block:
+    """A block's buffer and threshold (csrc BlockShared): keys at or above
+    the threshold are appended; a round that leaves more than ``cut_at``
+    keys cuts (csrc block_kernel: min(CUT_AT, CUT_K * k)); a cut is
+    block_cut's radix select."""
+
+    CUT_AT, CUT_K = ex.ROUND, 8      # csrc constants
+
+    def __init__(self, k):
+        self.k, self.buf, self.thr, self.cuts = k, [], 0, 0
+        self.cut_at = min(self.CUT_AT, self.CUT_K * k)
+
+    def append(self, keys, thr):
+        self.buf += [x for x in keys if x and x >= thr]
+        assert len(self.buf) <= 2 * ex.ROUND          # csrc BUF
+
+    def cut(self):
+        """block_cut: 8-bit digits from the top; a pass counts the digits
+        of the keys sharing the prefix, takes the digit whose bucket holds
+        the k-th key by a suffix sum, and stops once that bucket is wholly
+        among the k; the keys whose top bits are at or above the prefix are
+        then exactly the k."""
+        prefix = pmask = 0
+        need = self.k
+        for shift in range(56, -8, -8):
+            hist = [0] * 256
+            for x in self.buf:
+                if x & pmask == prefix:
+                    hist[(x >> shift) & 0xFF] += 1
+            suf = 0
+            for digit in range(255, -1, -1):
+                if suf + hist[digit] >= need:
+                    break
+                suf += hist[digit]
+            need -= suf
+            prefix |= digit << shift
+            pmask |= 0xFF << shift
+            if hist[digit] == need:
+                break
+        sel = [x for x in self.buf if x & pmask >= prefix]
+        assert len(sel) == self.k
+        self.buf, self.thr = sel, max(self.thr, min(sel))
+        self.cuts += 1
+
+
+def _select_like_the_blocks(d, k, ways, order):
+    """BLOCKS (csrc block_kernel) in Python: each query's positions in
+    ``ways`` segments of a multiple of ROUND, a block each; a round reads
+    ROUND positions, warp w's 256 at w * 256 (lane l's four of load u at 4
+    (u * 32 + l)), every key at or above max(the block's threshold, the
+    query's) appended, and a round that leaves more than CUT_AT keys cuts
+    and raises the query's threshold. The blocks of a query take rounds in
+    ``order`` ("turns": one round each in turn; "reverse": the last
+    segment first, whole). Each block cuts to its k largest at the end and
+    publishes them; the block that finishes last merges the lists, keys at
+    or above the query's threshold, ROUND entries a round, with the same
+    append and cut, and ranks its k keys (a sort: the keys are distinct).
+    Returns (each query's keys in rank order, the cuts)."""
+    seg = -(-(-(-d.shape[1] // ways)) // ex.ROUND) * ex.ROUND
+    out, cuts = [], 0
+    for row in _keys(d):
+        n = len(row)
+        spans = [(lo, min(n, lo + seg)) for lo in range(0, n, seg)]
+        shared = [0]
+        blocks = [_Block(k) for _ in spans]
+
+        def run(blk, lo, end, base):
+            thr = max(blk.thr, shared[0])
+            for w in range(8):
+                for u in range(2):
+                    for lane in range(32):
+                        i = base + w * 256 + 4 * (u * 32 + lane)
+                        blk.append([row[j] for j in range(i, i + 4)
+                                    if j < end], thr)
+            if len(blk.buf) > blk.cut_at:
+                blk.cut()
+                shared[0] = max(shared[0], blk.thr)
+
+        rounds = [list(range(lo, end, ex.ROUND)) for lo, end in spans]
+        done = []
+        if order == "turns":
+            for r in range(max(len(x) for x in rounds)):
+                for g, (lo, end) in enumerate(spans):
+                    if r < len(rounds[g]):
+                        run(blocks[g], lo, end, rounds[g][r])
+                        if r == len(rounds[g]) - 1:
+                            done.append(g)
+        else:
+            for g in reversed(range(len(spans))):
+                for base in rounds[g]:
+                    run(blocks[g], *spans[g], base)
+                done.append(g)
+        lists = []
+        for g in done:
+            blk = blocks[g]
+            if len(blk.buf) > k:
+                blk.cut()
+                shared[0] = max(shared[0], blk.thr)
+            lists.append(blk.buf)
+        last = blocks[done[-1]]
+        if ways > 1:
+            thr = max(last.thr, shared[0])
+            entries = [x for g in range(len(spans)) for x in
+                       blocks[g].buf + [0] * (k - len(blocks[g].buf))]
+            merge = _Block(k)
+            for e0 in range(0, len(entries), ex.ROUND):
+                merge.append(entries[e0:e0 + ex.ROUND], thr)
+                if len(merge.buf) > merge.cut_at:
+                    merge.cut()
+            if len(merge.buf) > k:
+                merge.cut()
+            last = merge
+        assert len(last.buf) == k
+        cuts += sum(b.cuts for b in blocks) + last.cuts * (ways > 1)
+        out.append(sorted(last.buf, reverse=True))
+    return out, cuts
+
+
+def _tie_rule_rows(seed, n):
+    """Rows of distances for the selection models: tie-heavy values with
+    both zeros and +inf (the masked cells), distances falling with the
+    position (each position enters the top k: the most cuts) with ties
+    every ninth, a run of +inf, and |normal| values."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0.0, -0.0, 1.5, 2.5, 3.0, np.inf], np.float32)
+    d = pool[rng.integers(0, len(pool), (4, n))]
+    d[1] = np.linspace(2.0, 0.0, n, dtype=np.float32)
+    d[1, ::9] = 0.25
+    d[2, n // 9:n - n // 9] = np.inf
+    d[3] = np.abs(rng.standard_normal(n)).astype(np.float32)
+    return torch.from_numpy(d)
+
+
+@pytest.mark.parametrize("order", ["turns", "reverse"])
+@pytest.mark.parametrize("ways", [1, 3])
+@pytest.mark.parametrize("k", [1, 32, 33, 101, 128])
+def test_block_selection_is_the_tie_rule_top_k(k, ways, order):
+    """BLOCKS' algorithm in Python (_select_like_the_blocks): rounds of
+    appends at or above the threshold, radix-select cuts, the query's
+    shared threshold, the last block's merge of the segments' lists. Rows
+    of 9,000 positions: five rounds a block at ways = 1, a ragged last
+    segment at ways = 3. It equals ``topk_smallest_lowest_index`` on tied,
+    signed-zero, +inf and descending rows, and it cuts."""
+    dt = _tie_rule_rows(k + ways, 9000)
+    wv, wi = ttopk.topk_smallest_lowest_index(dt, k)
+    got, cuts = _select_like_the_blocks(dt, k, ways, order)
+    for q, keys in enumerate(got):
+        gv, gi = _unkey(keys)
+        assert gi == wi[q].tolist()
+        assert gv.tobytes() == wv[q].numpy().tobytes()
+    assert cuts > 0
+
+
+@pytest.mark.parametrize("k", [1, 32, 33, 101, 128])
+def test_radix_cut_keeps_the_k_largest_keys(k):
+    """block_cut alone on buffers of distinct keys that share their top 32
+    bits (ties: only the position bits differ), that differ in the top
+    byte, and that are random: exactly the k largest stay, and the
+    threshold becomes the least of them."""
+    rng = np.random.default_rng(k)
+    pos = rng.permutation(1 << 20)[:3000]
+    tied = [(0xBF800000 << 32) | (0xFFFFFFFF - int(i)) for i in pos]
+    spread = [(int(h) << 32) | (0xFFFFFFFF - int(i)) for h, i in
+              zip(rng.integers(1, 1 << 32, 3000), pos)]
+    top = [(int(h) << 56) | int(i) for h, i in
+           zip(rng.permutation(255)[:200] + 1, pos)]
+    for keys in (tied, spread, top + tied[:50]):
+        blk = _Block(k)
+        blk.buf = list(keys)
+        blk.cut()
+        assert sorted(blk.buf) == sorted(keys)[-k:]
+        assert blk.thr == sorted(keys)[-k]
+
+
 def _round_up_f32(x64):
     """float64 values rounded up to float32 (csrc __fmul_ru of two f32: the
     product is exact in f64)."""
@@ -452,24 +626,33 @@ def test_coarse_filter_drops_no_cell_that_can_pass(metric):
 
 # --------------------------------------------------------- the plan
 @pytest.mark.parametrize("b,n,want", [
-    (256, 1_000_000, (30_464, 33)),     # the serving chunk
-    (8, 131_072, (2_048, 64)),          # [mesh]'s chunk
-    (1_024, 65_536, (7_424, 9)),        # the HNSW build's batch
-    (1, 1_000_000, (2_048, 489)),
-    (300, 5_000, (1_792, 3)),
-    (6, 600, (768, 1))])
+    (256, 1_000_000, (501_760, 2)),     # the serving chunk
+    (8, 131_072, (8_192, 16)),          # [mesh]'s chunk
+    (1_024, 65_536, (65_536, 1)),       # the HNSW build's batch
+    (1, 1_000_000, (8_192, 123)),       # a literal statement's one query
+    (300, 5_000, (6_144, 1)),
+    (6, 600, (2_048, 1)),
+    (132, 1_000_000, (251_904, 4)),
+    (529, 1_000_000, (1_001_472, 1)),
+    (1_024, 1_000_000, (1_001_472, 1)),  # a B = 1,024 batch's chunk
+    (64, 65_536, (8_192, 8)),
+    (8, 1_000_000, (16_384, 62)),
+    (1, 8_193, (6_144, 2))])
 def test_plan_fills_the_card(b, n, want):
-    """Strips of a multiple of STEP positions that cover a row, no more
-    strips than MIN_STRIP positions each would need; twice the warps an
-    H100 holds where the rows allow; a scratch of a few MB."""
+    """Segments of whole rounds that cover a row;
+    as many a query as keep b x ways within the blocks an H100 holds at once
+    (one wave), never shorter than MIN_SEGMENT, at least one; a scratch of
+    a few MB, none for one segment a query."""
     p = ex._plan(b, n)
-    assert (p.strip, p.ways) == want
-    assert p.strip % ex.STEP == 0
-    assert (p.ways - 1) * p.strip < n <= p.ways * p.strip
-    assert p.ways <= -(-n // ex.MIN_STRIP)
-    if p.ways < -(-n // ex.MIN_STRIP):
-        assert b * p.ways >= ex.WAVES * ex.SMS * ex.WARPS_A_SM
-    assert b * (p.ways * ex.MAX_K + 1) * 8 < 64 << 20
+    assert (p.span, p.ways) == want
+    assert p.span % ex.ROUND == 0
+    assert (p.ways - 1) * p.span < n <= p.ways * p.span
+    assert p.ways <= max(1, -(-n // ex.MIN_SEGMENT))
+    assert p.ways == 1 or b * p.ways <= ex.SMS * ex.BLOCKS_A_SM
+    ex._check_plan(p, b, n)
+    words = ex._scratch_words(p, b, ex.MAX_K)
+    assert words == (0 if p.ways == 1 else b * (p.ways * (ex.MAX_K + 1) + 2))
+    assert words * 8 < 64 << 20
 
 
 # ------------------------------------------------------------ the wrapper
@@ -498,7 +681,50 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     wide = torch.empty((1, 1 << 32), device="meta")
     with pytest.raises(ValueError):
         ex.exact_topk_select(wide, None, None, "ip", 5)
+    # plans the C launcher refuses: a segment that is not whole rounds or
+    # not positive, ways that do not cover the row or cover it more than
+    # once, a grid past 2^31 blocks
+    block = torch.empty((B, 10_000), device="meta")
+    for plan in (ex.Plan(ex.STEP * 3, 14),
+                 ex.Plan(ex.ROUND + 1, 5),
+                 ex.Plan(0, 1),
+                 ex.Plan(2 * ex.ROUND, 2),
+                 ex.Plan(ex.ROUND, 100)):
+        with pytest.raises(ValueError, match="no kernel plan"):
+            ex._launch(None, block, None, None, "ip", 5, None, None, plan)
+    with pytest.raises(ValueError, match="no kernel plan"):
+        ex._launch(None, torch.empty((1 << 22, 1 << 20), device="meta"),
+                   None, None, "ip", 5, None, None,
+                   ex.Plan(ex.ROUND, (1 << 20) // ex.ROUND))
     assert ex.exact_topk_select.launches == 0
+
+
+class _Fn:
+    """A C function of a fake build: returns ``value``."""
+
+    def __init__(self, value):
+        self.value, self.argtypes = value, None
+
+    def __call__(self, *args):
+        return self.value
+
+
+def test_bind_checks_the_constants_the_plan_shares_with_the_source():
+    """``_bind`` sets the signatures of a build and refuses one whose
+    MAX_K or ROUND differ from this module's (the plan's segments are whole
+    rounds)."""
+    for name in ex._HANDSHAKE:
+        lib = type("Lib", (), {})()
+        for fn in ("exact_topk_select_launch", "exact_topk_select_empty",
+                   "exact_topk_select_error_string"):
+            setattr(lib, fn, _Fn(0))
+        for other, value in ex._HANDSHAKE.items():
+            setattr(lib, other, _Fn(value))
+        assert ex._bind(lib) is lib
+        assert lib.exact_topk_select_launch.argtypes == ex._LAUNCH_ARGTYPES
+        setattr(lib, name, _Fn(ex._HANDSHAKE[name] * 2))
+        with pytest.raises(RuntimeError, match=name):
+            ex._bind(lib)
 
 
 def test_wrapper_routes_large_k_to_the_composition():
