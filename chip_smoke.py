@@ -8,6 +8,7 @@ multi-shard exact top-k, in one process and across query processes.
 
     python3 chip_smoke.py [--profile] [--diagnose]
     python3 chip_smoke.py --multihost     # [multihost] alone (see 11)
+    python3 chip_smoke.py --gates [OUT]   # the route-gate sweep alone (8b)
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card: name, power limit, torch and CUDA versions;
@@ -175,8 +176,25 @@ Phases (any failure exits non-zero and prints no result line):
      SIFT-shaped rows (the reference's batch of 64 clusters): k-means runs
      on the card, its cluster runs cover every row once, and a KNN query on
      the clustered table reaches recall@10 >= 0.99;
+  8b. [gates]: the route gates in force (the scan-aggregate route's table
+     size, group caps and pull screen, the host vector scan's size, the
+     exact-scan block size, the served-text table size), then TPC-H Q6 over
+     lineitem of one row under and of exactly device_scan_agg_min_rows
+     rows, and a prepared match() over a table of one doc under and of
+     exactly _MatchServer.DEVICE_MIN_DOCS docs: only the second of each pair
+     takes its device route, each with the host's (the generic path's)
+     rows. With --gates, only the kernels' build and the sweep: each gate
+     G1-G7 at the sizes GATES_* give (host and route in turns, each side's
+     first call and the median of GATES_REPS warm calls, the whole sweep
+     GATES_RUNS times in one process), a [gates] line a gate, size and run,
+     every routed statement's rows equal to the host's, then each gate's
+     crossover and the default by the rule of gate_rule (the TPU default
+     where the crossover lies within half to twice it, else the crossover
+     rounded); the whole record as JSON in the file named after --gates
+     (build/gates.json by default);
   9. [agg]: TPC-H SF1 lineitem (benchmarks/tpch.py's generator, 6,000,000
-     rows, seed 42) and five statements with the route on (its default):
+     rows, seed 42) and five statements with the route on (its default; the
+     group caps and the pull screen at AGG_CAPS, as before the card's caps):
      Q1 and Q6 (mask engine), GROUP BY l_suppkey (10,001 groups, matmul),
      GROUP BY l_partkey (200,001 groups, sort) and COUNT(DISTINCT
      l_suppkey) by l_returnflag. Each: host time (route off), the first
@@ -189,7 +207,7 @@ Phases (any failure exits non-zero and prints no result line):
      call under torch.profiler. Then [tpch] in the same session: the other
      seven tables of the same generator (2.66M rows), every table
      analyzed, and TPC-H q2, q3, q10, q11, q13, q15, q16 and q18 with the
-     route defaults: host time, first routed call, the median of 3 warm
+     route defaults but AGG_CAPS: host time, first routed call, the median of 3 warm
      calls; rows equal to the host's and passing ``benchmarks.tpch.check``
      against its pandas ``expected``, no route error; the routes that
      engaged (J1 enrichment, J2 pushdown, the fusion), the engines, any
@@ -279,6 +297,12 @@ AGG_SF = 1.0           # the [agg] deployment: TPC-H SF1 (6,000,000 lineitem row
 AGG_SEED = 42          # benchmarks/tpch.py's default seed
 AGG_REPS = 5           # warm routed calls per statement
 AGG_CHUNK_ROWS = 1_500_000  # Q1 once more in 4 chunks (the route's default: 8M)
+# [agg] and [tpch] keep the engines they covered before the card's caps:
+# the defaults measured on the card send every grid above 16 groups to the
+# sort engine, which runs no hand kernel
+AGG_CAPS = {"device_scan_agg_max_groups": 64,
+            "device_scan_agg_max_groups_matmul": 65_536,
+            "device_scan_agg_max_pull_mb": 16}
 TPCH_QUERIES = ("q2", "q3", "q10", "q11", "q13", "q15", "q16", "q18")
 TPCH_REPS = 3          # warm routed calls per [tpch] statement
 TIES_ROWS = 262_144    # [ties]: one block of integer rows in [0, 3]
@@ -299,7 +323,7 @@ MATCH_WORDS = ["weather", "news", "google", "maps", "cat", "videos", "python",
                "flights", "hotels", "music", "games", "sports", "stock",
                "market", "recipe", "travel"]
 MATCH_LONG_TERMS = (6, 8, 11, 14)   # [match]: words of the tie-heavy queries
-CSR_ROWS = 20_000      # [match]: the CSR table, one block at the size gate
+CSR_ROWS = 20_000      # [match]: the CSR table, one block above the size gate
 CSR_LONG_DOC = 600     # distinct words of its one doc past ImpactBM25.MAX_L
 
 
@@ -3325,6 +3349,9 @@ def phase_agg(card, profile, root):
         return rows
 
     ctx = dt.SessionContext(root)
+    for name, value in AGG_CAPS.items():
+        ctx.sql(f"SET {name} = {value}")
+    print(f"[agg] group caps set for [agg] and [tpch]: {AGG_CAPS}")
     real_gsums = dsa.gsums
     dsa._build_program = program_spy
     dsa.gsums = pytypes.SimpleNamespace(grouped_sums=sums_spy)
@@ -3450,7 +3477,7 @@ def phase_tpch(card, profile, ctx, data, engines, state):
     """The join-aggregate route and the finalize fusion on TPC-H SF1: the
     other seven tables of ``generate(AGG_SF, seed=AGG_SEED)`` loaded beside
     [agg]'s lineitem (2.66M rows more, nothing cut), every table analyzed,
-    route defaults on. Each of TPCH_QUERIES on the host (route off), then
+    route defaults on but [agg]'s AGG_CAPS. Each of TPCH_QUERIES on the host (route off), then
     routed: the first call and TPCH_REPS warm calls. Each routed call must
     count no route error, return the host's rows (sorted, floats within rel
     1e-12) and pass ``benchmarks.tpch.check`` against the pandas
@@ -3736,6 +3763,761 @@ def profile_modes(ctx, queries, card, reps=3):
         prepared._KnnServer._topk = real
 
 
+# ------------------------------------------------------------------ [gates]
+#
+# The route gates: the settings (and one class constant) that send a
+# statement to a device route or keep it on the host. ``--gates`` sweeps each
+# on the card; the default run prints the gates in force and checks one
+# statement on each side of G1 and G7.
+
+GATES_REPS = 7          # warm calls a side, in turns with the other sides
+GATES_RUNS = 2          # the whole sweep, twice in one process
+GATES_SF = (0.01, 0.02, 0.05, 0.1, 0.3, 1.0)   # G1: lineitem 60k ... 6M rows
+GATES_SCREEN_SF = (0.1, 1.0)                   # G2: 600k and 6M rows
+GATES_GROUP_ROWS = 6_000_000                   # G3 / G4: rows of the grid table
+GATES_GROUPS = (12, 64, 512, 4_096, 10_001, 65_536, 200_001, 1 << 19,
+                1_000_000, 1 << 21, 1 << 22)   # G3 / G4: grid sizes G
+GATES_VEC_ROWS = (4_096, 16_384, 65_536, 262_144)   # G5: one block each
+GATES_HNSW_BLOCKS = (65_536, 262_144, 1 << 20)      # G6: row_per_block
+GATES_DOCS = (2_000, 5_000, 20_000, 100_000)        # G7: one block each
+GATES_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "gates.json")   # --gates' record by default
+# the JAX package's defaults, set on a TPU: the half-to-twice rule below
+# compares each crossover on the card with these
+TPU_DEFAULTS = {
+    "device_scan_agg_min_rows": 300_000,
+    "device_scan_agg_max_groups": 64,
+    "device_scan_agg_max_groups_matmul": 65_536,
+    "device_scan_agg_max_groups_sort": 1 << 22,
+    "device_scan_agg_max_pull_mb": 16,
+    "vector_host_scan_max_rows": 1 << 16,
+    "vector_exact_scan_max_rows": 1 << 20,
+    "DEVICE_MIN_DOCS": 20_000,
+}
+
+
+def gates_in_force():
+    """The port's gate defaults: its settings and the served-text gate."""
+    from databend_tpu_torch.service.prepared import _MatchServer
+    from databend_tpu_torch.settings import DEFAULT_SETTINGS
+    from databend_tpu_torch.storage.fuse import table as fuse_table
+    out = {k: DEFAULT_SETTINGS[k].default for k in TPU_DEFAULTS
+           if k in DEFAULT_SETTINGS}
+    out["DEVICE_MIN_DOCS"] = _MatchServer.DEVICE_MIN_DOCS
+    out["GRAPH_BUILD_MIN_ROWS"] = fuse_table.GRAPH_BUILD_MIN_ROWS
+    return out
+
+
+def round_default(x, like):
+    """``x`` rounded to a round number: a power of two where the default
+    ``like`` is one, else one significant digit."""
+    x = max(int(x), 1)
+    if like & (like - 1) == 0:
+        return 1 << int(round(np.log2(x)))
+    unit = 10 ** (len(str(x)) - 1)
+    return int(round(x / unit)) * unit
+
+
+def gate_rule(name, crossover):
+    """(default, "kept" or "set"): the TPU default where the card's crossover
+    lies within half to twice it, else the crossover rounded."""
+    tpu = TPU_DEFAULTS[name]
+    if tpu / 2 <= crossover <= 2 * tpu:
+        return tpu, "kept"
+    return round_default(crossover, tpu), "set"
+
+
+def first_win(sizes, wins):
+    """The smallest size at which ``wins(size)`` holds in every run; the
+    largest size swept where it never does."""
+    return next((s for s in sizes if wins(s)), sizes[-1])
+
+
+def last_win(sizes, wins):
+    """The largest size up to which ``wins`` holds at every size swept; the
+    smallest size swept where it fails there already."""
+    best = sizes[0]
+    for s in sizes:
+        if not wins(s):
+            break
+        best = s
+    return best
+
+
+def _gate_ms(call):
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def gate_turns(sides, reps=GATES_REPS):
+    """Time the sides of one gate at one size. ``sides``: (name, setup, call,
+    cold, took): ``setup()`` sets the side's settings (untimed), ``cold()``
+    empties the caches its first call fills (None: nothing to empty),
+    ``took()`` is called before and returns a check called after each call,
+    which says whether the call took the side's route. Each side's first
+    call, then ``reps`` rounds of one call a side in turns. Returns {name:
+    {"first": ms, "warm": [ms], "median": ms, "took": bool}} and {name: the
+    first call's result}."""
+    out, first = {}, {}
+
+    def one(side):
+        _, setup, call, _, took = side
+        setup()
+        after = took()
+        ms, res = _gate_ms(call)
+        return ms, res, after()
+
+    for side in sides:
+        side[1]()
+        if side[3] is not None:
+            side[3]()
+        ms, res, ok = one(side)
+        out[side[0]] = {"first": ms, "warm": [], "took": ok}
+        first[side[0]] = res
+    for _ in range(reps):
+        for side in sides:
+            ms, _, ok = one(side)
+            out[side[0]]["warm"].append(ms)
+            out[side[0]]["took"] &= ok
+    for v in out.values():
+        v["median"] = float(np.median(v["warm"]))
+    return out, first
+
+
+def same_result(want, got):
+    """Two statements' results: the same rows in any order (floats within rel
+    1e-12, as ``same_rows``); large grids compared as numpy columns ordered
+    by their first column."""
+    a, b = want.block, got.block
+    if a.num_rows != b.num_rows:
+        return False
+    if a.num_rows <= 100_000:
+        return same_rows(sorted(want.rows()), sorted(got.rows()))
+    ca = [np.asarray(c.numpy()) for _, c in a.items()]
+    cb = [np.asarray(c.numpy()) for _, c in b.items()]
+    ia = np.argsort(ca[0], kind="stable")
+    ib = np.argsort(cb[0], kind="stable")
+    return all(np.array_equal(x[ia], y[ib]) for x, y in zip(ca, cb))
+
+
+def same_match(want, got):
+    """Served and generic ``match()`` rows: the same ids in the same order,
+    scores within rel 1e-4 (the two paths round a doc's f32 sum apart)."""
+    return [r[0] for r in want] == [r[0] for r in got] and np.allclose(
+        [r[1] for r in want], [r[1] for r in got], rtol=1e-4)
+
+
+def set_all(ctx, **kv):
+    def setup():
+        for k, v in kv.items():
+            ctx.sql(f"SET {k} = {v}")
+    return setup
+
+
+class GateSweep:
+    """The sweep's record: every timing under gates[gate][size][run], each
+    line printed as it is taken and the whole record rewritten to ``out``,
+    so a cut run keeps what it measured."""
+
+    def __init__(self, card, out=GATES_OUT):
+        self.card = card
+        self.out = out
+        self.data = {"card": card, "gates": {}, "decisions": {}}
+        self.faults = []
+
+    def add(self, gate, size, run, what, timings, note=""):
+        rec = self.data["gates"].setdefault(gate, {}).setdefault(
+            str(size), {}).setdefault(what, {})
+        rec[str(run)] = timings
+        parts = []
+        for side, t in timings.items():
+            parts.append(f"{side} first {t['first']:.3f} warm "
+                         f"{t['median']:.3f}" + ("" if t["took"] else
+                                                 " (OFF ITS ROUTE)"))
+            if not t["took"]:
+                self.faults.append(f"{gate} {size} {what} run {run}: {side} "
+                                   "did not take its route")
+        print(f"[gates] {gate} {size} {what} run {run}: " + "; ".join(parts)
+              + f" ms{note} [{self.card}]", flush=True)
+        self.dump()
+
+    def same(self, gate, size, what, want, got, side):
+        if not same_result(want, got):
+            self.faults.append(f"{gate} {size} {what}: {side}'s rows differ "
+                               "from the host's")
+
+    def dump(self):
+        os.makedirs(os.path.dirname(os.path.abspath(self.out)), exist_ok=True)
+        with open(self.out, "w") as f:
+            json.dump(self.data, f, indent=1)
+
+
+def gate_route_counts():
+    from databend_tpu_torch.utils.metrics import METRICS
+    c = METRICS.counters
+    return (c.get("device_scan_agg_queries", 0)
+            + c.get("device_join_agg_queries", 0),
+            c.get("device_scan_agg_errors", 0)
+            + c.get("device_join_agg_errors", 0))
+
+
+def took_route(routed, engines=None, engine=None):
+    """A ``took`` for gate_turns: the call counted one routed statement (or
+    none, for the host) and no route error; with ``engine``, the grouping
+    program it built was that engine's."""
+    def took():
+        before = gate_route_counts()
+        seen = len(engines) if engines is not None else 0
+
+        def after():
+            now = gate_route_counts()
+            ok = now[1] == before[1] and (
+                now[0] > before[0] if routed else now[0] == before[0])
+            if ok and engine is not None:
+                ok = engines[seen:] != [] and set(engines[seen:]) == {engine}
+            return ok
+        return after
+    return took
+
+
+def sweep_agg(sweep, run, tpch_ctxs, group_ctx, engines, pulls):
+    """G1 (table size: five TPC-H statements, host against the route at the
+    default caps), G2 (the work screen: two bare aggregates, host against the
+    forced route) and G3 / G4 (every engine the caps allow against the host
+    at each grid size; the pull of each routed call)."""
+    from benchmarks.tpch import QUERIES
+    from databend_tpu_torch.pipeline import device_scan_agg as dsa
+    cold = dsa._cache().clear
+    g1 = [("q1", QUERIES["q1"]), ("q6", QUERIES["q6"]),
+          ("by_supplier", agg_statements()[2][2]),
+          ("q3", QUERIES["q3"]), ("q10", QUERIES["q10"])]
+    for sf, (rows, ctx) in tpch_ctxs.items():
+        host = set_all(ctx, enable_device_local_execution=0)
+        route = set_all(ctx, enable_device_local_execution=1,
+                        device_scan_agg_min_rows=0)
+        for name, sql in g1:
+            t, res = gate_turns([
+                ("host", host, lambda: ctx.sql(sql), None,
+                 took_route(False)),
+                ("route", route, lambda: ctx.sql(sql), cold,
+                 took_route(True))])
+            sweep.same("G1", rows, name, res["host"], res["route"], "route")
+            sweep.add("G1", rows, run, name, t)
+        if sf not in GATES_SCREEN_SF:
+            continue
+        for name, sql in (
+                ("count_filter",
+                 "SELECT count(*) FROM lineitem WHERE l_quantity < 24"),
+                ("avg", "SELECT avg(l_extendedprice) FROM lineitem")):
+            t, res = gate_turns([
+                ("host", host, lambda: ctx.sql(sql), None,
+                 took_route(False)),
+                ("route", route, lambda: ctx.sql(sql), cold,
+                 took_route(True))])
+            sweep.same("G2", rows, name, res["host"], res["route"], "route")
+            sweep.add("G2", rows, run, name, t)
+
+    ctx = group_ctx
+    host = set_all(ctx, enable_device_local_execution=0)
+    forced = {
+        "mask": dict(device_scan_agg_max_groups=1 << 20,
+                     device_scan_agg_max_groups_matmul=0,
+                     device_scan_agg_max_groups_sort=0),
+        "matmul": dict(device_scan_agg_max_groups=0,
+                       device_scan_agg_max_groups_matmul=1 << 24,
+                       device_scan_agg_max_groups_sort=0),
+        "sort": dict(device_scan_agg_max_groups=0,
+                     device_scan_agg_max_groups_matmul=0,
+                     device_scan_agg_max_groups_sort=1 << 24)}
+    for G in GATES_GROUPS:
+        for what, sql in (
+                ("sum_count", f"SELECT k{G}, sum(q), count(*) FROM g "
+                              f"GROUP BY k{G}"),
+                ("min_max", f"SELECT k{G}, min(v), max(v) FROM g "
+                            f"GROUP BY k{G}")):
+            sides = [("host", host, lambda: ctx.sql(sql), None,
+                      took_route(False))]
+            for engine, caps in forced.items():
+                if engine == "mask" and G > 1 << 20:
+                    continue            # past the setting's range
+                if engine == "matmul" and what == "min_max":
+                    continue            # MIN / MAX have no sum form
+                sides.append((engine, set_all(
+                    ctx, enable_device_local_execution=1,
+                    device_scan_agg_min_rows=0,
+                    device_scan_agg_max_pull_mb=0, **caps),
+                    lambda: ctx.sql(sql), cold,
+                    took_route(True, engines, engine)))
+            pulls.clear()
+            t, res = gate_turns(sides)
+            for side in t:
+                if side != "host":
+                    sweep.same("G3", G, what, res["host"], res[side], side)
+            pull = dict(pulls)
+            sweep.data.setdefault("pull_bytes", {}).setdefault(
+                str(G), {})[what] = pull
+            sweep.add("G3", G, run, what, t,
+                      note=f"; pull bytes {pull}")
+
+
+def sweep_vectors(sweep, run, vec_ctx, hnsw_ctx, hnsw_truth):
+    """G5 (host numpy scan against the card, literal KNN with and without a
+    WHERE) and G6 (exact scan against HNSW at ef = 40, by block size; ms
+    and recall@10)."""
+    from databend_tpu_torch.ops.exact_topk import exact_topk_select
+    from databend_tpu_torch.storage.fuse.table import FuseTable
+    from databend_tpu_torch.utils.cache import CacheManager
+    from databend_tpu_torch.utils.metrics import METRICS
+    cm = CacheManager.instance()
+
+    def cold():
+        cm.vector_columns.clear()
+        cm.vector_indexes.clear()
+
+    ctx, lit = vec_ctx
+    for n in GATES_VEC_ROWS:
+        for what, where in (("knn", ""), ("knn_where", "WHERE id % 3 = 0 ")):
+            sql = (f"SELECT id FROM v{n} {where}ORDER BY "
+                   f"l2_distance(emb, {lit}) LIMIT 10")
+
+            def took(on_host):
+                def took_():
+                    before = FuseTable._host_block_scores.calls
+                    return lambda: (FuseTable._host_block_scores.calls
+                                    > before) == on_host
+                return took_
+            t, res = gate_turns([
+                ("host", set_all(ctx, vector_host_scan_max_rows=1 << 40),
+                 lambda: ctx.sql(sql), None, took(True)),
+                ("card", set_all(ctx, vector_host_scan_max_rows=0),
+                 lambda: ctx.sql(sql), cold, took(False))])
+            sweep.same("G5", n, what, res["host"], res["card"], "card")
+            sweep.add("G5", n, run, what, t)
+
+    ctx, lits = hnsw_ctx
+    d_cos, kth = hnsw_truth
+    for block in GATES_HNSW_BLOCKS:
+        sql = (f"SELECT id FROM h{block} ORDER BY cosine_distance(emb, {{}}) "
+               "LIMIT 10")
+
+        def took(mode):
+            def took_():
+                searches = METRICS.counters.get("hnsw_search_batches", 0)
+                launches = exact_topk_select.launches
+                if mode == "hnsw":
+                    return lambda: METRICS.counters.get(
+                        "hnsw_search_batches", 0) > searches
+                return lambda: exact_topk_select.launches > launches \
+                    and METRICS.counters.get("hnsw_search_batches",
+                                             0) == searches
+            return took_
+        sides = [(mode, set_all(ctx, vector_search_mode=f"'{mode}'"),
+                  lambda: ctx.sql(sql.format(lits[0])), cold, took(mode))
+                 for mode in ("exact", "hnsw")]
+        t, _ = gate_turns(sides)
+        rec = {}
+        for mode in ("exact", "hnsw"):
+            sides[[s[0] for s in sides].index(mode)][1]()
+            ids = np.array([[i for (i,) in ctx.sql(sql.format(q)).rows()]
+                            for q in lits])
+            rec[mode] = recall(ids, d_cos, kth)
+        sweep.data.setdefault("recall", {})[f"{block} run {run}"] = rec
+        sweep.add("G6", block, run, "knn", t,
+                  note=f"; recall@10 exact {rec['exact']}, hnsw "
+                       f"{rec['hnsw']} on {len(lits)} queries")
+
+
+def sweep_text(sweep, run, text_ctxs, pool):
+    """G7: prepared match() served (per-block device BM25) against the
+    generic path, at B = 1 and B = 8, by table size."""
+    from databend_tpu_torch.ops.impact_bm25 import impact_bm25_topk
+    from databend_tpu_torch.utils.cache import CacheManager
+    cm = CacheManager.instance()
+    for n, ctx in text_ctxs.items():
+        sql = (f"SELECT id, score() FROM d{n} WHERE match(body, ?) "
+               "ORDER BY score() DESC LIMIT 10")
+        served, generic = ctx.prepare(sql), ctx.prepare(sql)
+        served._match.DEVICE_MIN_DOCS = 0
+        generic._match.DEVICE_MIN_DOCS = 1 << 62
+
+        def cold():
+            cm.inverted_indexes.clear()
+            served._match._snap_id = None
+
+        def took(is_served):
+            def took_():
+                before = impact_bm25_topk.launches
+                return lambda: (impact_bm25_topk.launches > before) \
+                    == is_served
+            return took_
+        for what, call in (
+                ("b1", lambda pm: pm.execute(pool[0])),
+                ("b8", lambda pm: pm.execute_batch([(t,) for t in pool[:8]]))):
+            t, res = gate_turns([
+                ("generic", lambda: None, lambda: call(generic), None,
+                 took(False)),
+                ("served", lambda: None, lambda: call(served), cold,
+                 took(True))])
+            want = res["generic"] if what == "b8" else [res["generic"]]
+            got = res["served"] if what == "b8" else [res["served"]]
+            if not all(same_match(w.rows(), r.rows())
+                       for w, r in zip(want, got)):
+                sweep.faults.append(f"G7 {n} {what}: served rows differ "
+                                    "from the generic path's")
+            sweep.add("G7", n, run, what, t)
+
+
+def gates_load(root, card):
+    """Every table of the sweep, loaded once: TPC-H lineitem, orders,
+    customer and nation at each of GATES_SF (a context each); the grid table
+    ``g`` (GATES_GROUP_ROWS rows, a key column k<G> of exactly G - 1 values
+    for each G of GATES_GROUPS, q in [1, 50], v in [0, 10,000)); vector tables
+    v<n> (SIFT-shaped, seed 7, an l2 vector index, no graph); the [hnsw]
+    corpus under graphs='always' at each of GATES_HNSW_BLOCKS rows a block;
+    [match]'s texts at each of GATES_DOCS docs, one block each."""
+    import databend_tpu_torch as dt
+    from benchmarks.tpch import generate
+    from databend_tpu_torch.expression import Column, DataBlock
+    from databend_tpu_torch.types import Int64, String, VectorType
+
+    t0 = time.perf_counter()
+    tpch_ctxs = {}
+    for sf in GATES_SF:
+        data = generate(sf, seed=AGG_SEED)
+        ctx = dt.SessionContext(os.path.join(root, f"tpch{sf}"))
+        load_tpch_tables(ctx, {t: data[t] for t in
+                               ("nation", "customer", "orders", "lineitem")})
+        tpch_ctxs[sf] = (len(data["lineitem"]["l_orderkey"]), ctx)
+        del data
+    print(f"[gates] TPC-H at sf {GATES_SF}: lineitem "
+          f"{[r for r, _ in tpch_ctxs.values()]} rows, loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(AGG_SEED)
+    n = GATES_GROUP_ROWS
+    group_ctx = dt.SessionContext(os.path.join(root, "groups"))
+    names = [f"k{G}" for G in GATES_GROUPS] + ["q", "v"]
+    group_ctx.sql("CREATE TABLE g (" + ", ".join(f"{c} BIGINT"
+                                                 for c in names) + ")")
+    cols = [Column(Int64, (np.arange(n, dtype=np.int64) % (G - 1))[
+        rng.permutation(n)]) for G in GATES_GROUPS]
+    cols.append(Column(Int64, rng.integers(1, 51, n, dtype=np.int64)))
+    cols.append(Column(Int64, rng.integers(0, 10 ** 4, n, dtype=np.int64)))
+    group_ctx.insert_block("g", DataBlock(names, cols))
+    del cols
+    group_ctx.sql("ANALYZE TABLE g")
+    print(f"[gates] grid table g: {n} rows, keys of G in {GATES_GROUPS}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    centers = rng.integers(0, 256, size=(1000, DIM)).astype(np.float32)
+    x = sift_like(rng, max(GATES_VEC_ROWS), centers)
+    lit = "[" + ",".join(str(int(v)) for v in sift_like(rng, 1, centers)[0]) \
+        + "]"
+    vec_ctx = dt.SessionContext(os.path.join(root, "vectors"))
+    for rows in GATES_VEC_ROWS:
+        vec_ctx.sql(f"CREATE TABLE v{rows} (id BIGINT, emb VECTOR({DIM}))")
+        vec_ctx.sql(f"CREATE VECTOR INDEX vi{rows} ON v{rows}(emb) "
+                    "distance='l2'")
+        vec_ctx.insert_block(f"v{rows}", DataBlock(
+            ["id", "emb"],
+            [Column.from_numpy(np.arange(rows, dtype=np.int64)),
+             Column.from_numpy(x[:rows], VectorType(DIM))]))
+    del x
+
+    rng = np.random.default_rng(HNSW_SEED)
+    centers = rng.integers(0, 256, size=(HNSW_CENTERS, DIM)).astype(np.float32)
+    x = sift_like(rng, HNSW_ROWS, centers)
+    queries = sift_like(rng, N_GT, centers)
+    hnsw_truth = ground_truth(x, queries, "cosine")
+    lits = ["[" + ",".join(str(int(v)) for v in q) + "]" for q in queries]
+    hnsw_ctx = dt.SessionContext(os.path.join(root, "hnsw"))
+    for block in GATES_HNSW_BLOCKS:
+        t1 = time.perf_counter()
+        hnsw_ctx.sql(f"CREATE TABLE h{block} (id BIGINT, emb VECTOR({DIM})) "
+                     f"ROW_PER_BLOCK='{block}'")
+        hnsw_ctx.sql(f"CREATE VECTOR INDEX hv{block} ON h{block}(emb) "
+                     f"distance='cosine' graphs='always' m='{HNSW_M}' "
+                     f"ef_construct='{HNSW_EF_CONSTRUCT}'")
+        hnsw_ctx.insert_block(f"h{block}", DataBlock(
+            ["id", "emb"],
+            [Column.from_numpy(np.arange(HNSW_ROWS, dtype=np.int64)),
+             Column.from_numpy(x, VectorType(DIM))]))
+        print(f"[gates] h{block}: {HNSW_ROWS} rows in blocks of {block} "
+              f"with a graph each: {time.perf_counter() - t1:.1f} s "
+              f"[{card}]", flush=True)
+    del x
+
+    rng = np.random.default_rng(MATCH_SEED)
+    n = max(GATES_DOCS)
+    words = np.array(MATCH_WORDS)[rng.integers(0, len(MATCH_WORDS), (n, 4))]
+    n_words = rng.integers(2, 5, n)
+    texts = [" ".join(words[i, :n_words[i]]) for i in range(n)]
+    pool = [" ".join(rng.choice(MATCH_WORDS, 2, replace=False))
+            for _ in range(8)]
+    text_ctxs = {}
+    for docs in GATES_DOCS:
+        ctx = dt.SessionContext(os.path.join(root, f"text{docs}"))
+        ctx.sql(f"CREATE TABLE d{docs} (id BIGINT, body VARCHAR)")
+        ctx.sql(f"CREATE INVERTED INDEX di{docs} ON d{docs}(body)")
+        ctx.insert_block(f"d{docs}", DataBlock(
+            ["id", "body"],
+            [Column.from_numpy(np.arange(docs, dtype=np.int64)),
+             Column.from_pylist(texts[:docs], String)]))
+        text_ctxs[docs] = ctx
+    print(f"[gates] vector, HNSW and text tables: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return (tpch_ctxs, group_ctx, (vec_ctx, lit), (hnsw_ctx, lits),
+            hnsw_truth, text_ctxs, pool)
+
+
+def gates_decide(sweep):
+    """Each gate's crossover on the card and the default the half-to-twice
+    rule gives, printed as one [gates] line a gate."""
+    g = sweep.data["gates"]
+    runs = [str(r) for r in range(1, GATES_RUNS + 1)]
+    force = gates_in_force()
+    dec = sweep.data["decisions"]
+
+    def med(gate, size, what, run, side):
+        return g[gate][str(size)][what][run][side]["median"]
+
+    def say(name, crossover, how):
+        default, verdict = gate_rule(name, crossover)
+        dec[name] = {"crossover": crossover, "tpu": TPU_DEFAULTS[name],
+                     "card": default, "verdict": verdict,
+                     "in_force": force[name], "how": how}
+        print(f"[gates] decision {name}: crossover {crossover:,} ({how}); "
+              f"TPU default {TPU_DEFAULTS[name]:,}, card default "
+              f"{default:,} ({verdict}); in force {force[name]:,} "
+              f"[{sweep.card}]", flush=True)
+
+    if "G1" in g:
+        sizes = sorted(int(s) for s in g["G1"])
+        say("device_scan_agg_min_rows", first_win(sizes, lambda s: all(
+            med("G1", s, w, r, "route") < med("G1", s, w, r, "host")
+            for w in g["G1"][str(s)] for r in runs)),
+            "smallest lineitem size at which the warm route beats the host "
+            "in every G1 statement and run")
+    if "G2" in g:
+        host_wins = [f"{w} at {s}" for s in g["G2"] for w in g["G2"][s]
+                     if all(med("G2", s, w, r, "host")
+                            < med("G2", s, w, r, "route") for r in runs)]
+        dec["work_screen"] = {"host_wins": host_wins,
+                              "verdict": "kept" if host_wins else "removed"}
+        print(f"[gates] decision work screen: the host wins "
+              f"{host_wins or 'no shape'} in both runs: "
+              f"{dec['work_screen']['verdict']} [{sweep.card}]", flush=True)
+    if "G3" in g:
+        Gs = sorted(int(s) for s in g["G3"])
+        whats = ("sum_count", "min_max")
+
+        def fastest(G, engine):
+            return all(min(g["G3"][str(G)][w][r].items(),
+                           key=lambda kv: kv[1]["median"]
+                           if kv[0] != "host" else float("inf"))[0] == engine
+                       for w in whats for r in runs)
+
+        def beats(G, a, b, w):
+            sides = g["G3"][str(G)][w]
+            return all(a in sides[r] and b in sides[r]
+                       and sides[r][a]["median"] < sides[r][b]["median"]
+                       for r in runs)
+        mask = last_win([G for G in Gs if G <= 1 << 20],
+                        lambda G: fastest(G, "mask"))
+        say("device_scan_agg_max_groups", mask,
+            "largest G up to which the mask engine is the fastest engine "
+            "of both statements in both runs")
+        say("device_scan_agg_max_groups_matmul",
+            last_win(Gs, lambda G: beats(G, "matmul", "sort", "sum_count")),
+            "largest G up to which the matmul engine beats the sort engine "
+            "(SUM + COUNT) in both runs")
+        say("device_scan_agg_max_groups_sort",
+            last_win(Gs, lambda G: all(beats(G, "sort", "host", w)
+                                       for w in whats)),
+            "largest G up to which the sort engine beats the host in both "
+            "statements and runs")
+        pulls = sweep.data.get("pull_bytes", {})
+        card = {n: dec[n]["card"] for n in (
+            "device_scan_agg_max_groups", "device_scan_agg_max_groups_matmul")}
+
+        def engine_at(G):
+            if G <= card["device_scan_agg_max_groups"]:
+                return "mask"
+            if G <= card["device_scan_agg_max_groups_matmul"]:
+                return "matmul"
+            return "sort"
+        mb = [(pulls[str(G)]["sum_count"][engine_at(G)] / 2 ** 20, G)
+              for G in Gs if engine_at(G) in pulls.get(str(G), {}).get(
+                  "sum_count", {})]
+        mb = [(m, G) for m, G in sorted(mb) if m >= 1]
+        if mb:
+            best = last_win(mb, lambda mg: beats(mg[1], engine_at(mg[1]),
+                                                 "host", "sum_count"))
+            say("device_scan_agg_max_pull_mb", max(int(round(best[0])), 1),
+                f"largest unfused [K, G] pull (MB; G = {best[1]:,}) up to "
+                "which the route at the card's caps beats the host, SUM + "
+                "COUNT, both runs")
+    if "G5" in g:
+        sizes = sorted(int(s) for s in g["G5"])
+        say("vector_host_scan_max_rows", first_win(sizes, lambda s: all(
+            med("G5", s, w, r, "card") < med("G5", s, w, r, "host")
+            for w in g["G5"][str(s)] for r in runs)),
+            "smallest corpus at which the card beats the host scan with and "
+            "without a WHERE in both runs")
+    if "G6" in g:
+        sizes = sorted(int(s) for s in g["G6"])
+        hnsw_from = first_win(sizes, lambda s: all(
+            med("G6", s, "knn", r, "hnsw") < med("G6", s, "knn", r, "exact")
+            for r in runs))
+        say("vector_exact_scan_max_rows", hnsw_from,
+            "smallest block size at which HNSW at ef = 40 beats the exact "
+            "scan in both runs (the largest swept if it never does)")
+    if "G7" in g:
+        sizes = sorted(int(s) for s in g["G7"])
+        say("DEVICE_MIN_DOCS", first_win(sizes, lambda s: all(
+            med("G7", s, w, r, "served") < med("G7", s, w, r, "generic")
+            for w in g["G7"][str(s)] for r in runs)),
+            "smallest table at which served match() beats the generic path "
+            "at B = 1 and B = 8 in both runs")
+    sweep.dump()
+
+
+def phase_gates_sweep(card, out=GATES_OUT):
+    """``--gates``: every route gate swept on the card, the whole sweep
+    GATES_RUNS times in one process, each side's first call and the median of
+    GATES_REPS warm calls in turns; each gate's crossover and default by the
+    half-to-twice rule; the record written to ``out`` as it grows. Rows of
+    every route equal the host's."""
+    from databend_tpu_torch.pipeline import device_scan_agg as dsa
+    from databend_tpu_torch.storage.fuse.table import FuseTable
+    from databend_tpu_torch.utils.cache import CacheManager
+
+    print(f"[gates] in force: {gates_in_force()} [{card}]", flush=True)
+    sweep = GateSweep(card, out)
+    engines, pulls = [], {}
+    real_program = dsa._build_program
+    real_host_scores = FuseTable._host_block_scores
+
+    def program_spy(ir):
+        prog = real_program(ir)
+
+        def run(*a):
+            out = prog(*a)
+            parts = out if isinstance(out, (list, tuple)) else [out]
+            pulls[ir[4]] = sum(p.numel() * p.element_size() for p in parts)
+            return out
+        engines.append(ir[4])
+        return run
+
+    def host_scores(self, *a, **k):
+        host_scores.calls += 1
+        return real_host_scores(self, *a, **k)
+    host_scores.calls = 0
+
+    with tempfile.TemporaryDirectory() as root:
+        loaded = gates_load(root, card)
+        (tpch_ctxs, group_ctx, vec_ctx, hnsw_ctx, hnsw_truth, text_ctxs,
+         pool) = loaded
+        dsa._build_program = program_spy
+        FuseTable._host_block_scores = host_scores
+        try:
+            for run in range(1, GATES_RUNS + 1):
+                t0 = time.perf_counter()
+                sweep_text(sweep, run, text_ctxs, pool)
+                sweep_vectors(sweep, run, vec_ctx, hnsw_ctx, hnsw_truth)
+                sweep_agg(sweep, run, tpch_ctxs, group_ctx, engines, pulls)
+                print(f"[gates] run {run}: {time.perf_counter() - t0:.1f} s",
+                      flush=True)
+        finally:
+            dsa._build_program = real_program
+            FuseTable._host_block_scores = real_host_scores
+            for c in ([c for _, c in tpch_ctxs.values()] + [group_ctx]
+                      + [vec_ctx[0], hnsw_ctx[0]] + list(text_ctxs.values())):
+                c.close()
+            CacheManager.instance().clear_all()
+            dsa._cache().clear()
+    gates_decide(sweep)
+    check(not sweep.faults, "gate sweep faults: " + "; ".join(sweep.faults))
+
+
+def phase_gates(card):
+    """The default run's gate check: the gates in force, and one statement on
+    each side of G1 (TPC-H Q6 over lineitem of one row under and of exactly
+    ``device_scan_agg_min_rows`` rows: only the second routes) and of G7
+    (prepared match() over a table of one doc under and of exactly
+    ``_MatchServer.DEVICE_MIN_DOCS`` docs: only the second is served), each
+    with the host's (the generic path's) rows."""
+    import databend_tpu_torch as dt
+    from benchmarks.tpch import QUERIES, generate
+    from databend_tpu_torch.expression import Column, DataBlock
+    from databend_tpu_torch.ops.impact_bm25 import impact_bm25_topk
+    from databend_tpu_torch.service.prepared import _MatchServer
+    from databend_tpu_torch.types import String
+
+    force = gates_in_force()
+    print(f"[gates] in force: {force} [{card}]", flush=True)
+    gate = force["device_scan_agg_min_rows"]
+    docs = _MatchServer.DEVICE_MIN_DOCS
+    li = generate(gate / 6_000_000 * 1.01 + 1e-3, seed=AGG_SEED)["lineitem"]
+    rng = np.random.default_rng(MATCH_SEED)
+    words = np.array(MATCH_WORDS)[rng.integers(0, len(MATCH_WORDS),
+                                               (docs, 4))]
+    n_words = rng.integers(2, 5, docs)
+    texts = [" ".join(words[i, :n_words[i]]) for i in range(docs)]
+    with tempfile.TemporaryDirectory() as root:
+        for side, rows in (("under", gate - 1), ("at", gate)):
+            ctx = dt.SessionContext(os.path.join(root, side))
+            try:
+                load_lineitem(ctx, {c: v[:rows] for c, v in li.items()})
+                ctx.sql("SET enable_device_local_execution = 0")
+                host = ctx.sql(QUERIES["q6"]).rows()
+                ctx.sql("SET enable_device_local_execution = 1")
+                before = gate_route_counts()
+                got = ctx.sql(QUERIES["q6"]).rows()
+                routed = gate_route_counts()[0] - before[0]
+            finally:
+                ctx.close()
+            check(same_rows(host, got), f"[gates] G1 {side}: rows differ "
+                                        "from the host's")
+            check(routed == (side == "at"),
+                  f"[gates] G1: {rows} rows, routed {routed}")
+            print(f"[gates] G1 {rows:,} lineitem rows ({side} the gate): "
+                  f"Q6 routed {bool(routed)}, rows equal the host's "
+                  f"[{card}]", flush=True)
+        for side, n in (("under", docs - 1), ("at", docs)):
+            ctx = dt.SessionContext(os.path.join(root, f"text_{side}"))
+            try:
+                ctx.sql("CREATE TABLE d (id BIGINT, body VARCHAR)")
+                ctx.sql("CREATE INVERTED INDEX di ON d(body)")
+                ctx.insert_block("d", DataBlock(
+                    ["id", "body"],
+                    [Column.from_numpy(np.arange(n, dtype=np.int64)),
+                     Column.from_pylist(texts[:n], String)]))
+                sql = ("SELECT id, score() FROM d WHERE match(body, {}) "
+                       "ORDER BY score() DESC LIMIT 10")
+                pm = ctx.prepare(sql.format("?"))
+                before = impact_bm25_topk.launches
+                got = pm.execute("cat news").rows()
+                served = impact_bm25_topk.launches > before \
+                    and pm._match._snap_id is not None
+                want = ctx.sql(sql.format("'cat news'")).rows()
+            finally:
+                ctx.close()
+            check(same_match(want, got), f"[gates] G7 {side}: rows differ "
+                                         "from the generic path's")
+            check(served == (side == "at"),
+                  f"[gates] G7: {n} docs, served {served}")
+            print(f"[gates] G7 {n:,} docs ({side} the gate): prepared "
+                  f"match() served {served}, rows equal the generic path's "
+                  f"[{card}]", flush=True)
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3751,6 +4533,15 @@ def main():
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     if "--multihost" in args:
         multihost_alone(card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--gates" in args:
+        at = args.index("--gates") + 1
+        build_kernels()
+        phase_gates_sweep(card, args[at] if at < len(args) else GATES_OUT)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3780,6 +4571,7 @@ def main():
                             "impact_bm25_scores no time")
     exact_launches += phase_hnsw(card, profile)
     phase_cluster(card)
+    phase_gates(card)
     with tempfile.TemporaryDirectory() as work:
         gs_launches, captured, tpch_launches, dist_rows = phase_agg(
             card, profile, os.path.join(work, "tpch"))

@@ -61,11 +61,15 @@ class PushDownInfo:
     # (reference enable_distributed_pruning, settings_default.rs:1470)
     enable_distributed: bool = False
     # per-block KNN strategy (settings: vector_search_mode) and the auto-
-    # mode exact-scan row ceiling
+    # mode exact-scan row ceiling: the exact scan beat HNSW at ef = 40 for
+    # blocks up to 1,048,576 rows (NVIDIA H100 80GB HBM3, 700.00 W;
+    # chip_smoke.py --gates), so the defaults equal settings.py's
     vector_search_mode: str = "auto"
     vector_exact_scan_max_rows: int = 1 << 20
     # corpora at or below this many rows are scored on the host (numpy):
-    # a device dispatch costs a full RTT, which dwarfs sub-100k-row scans
+    # the card's crossover is 65,536 rows (the host scan ahead at 4,096,
+    # split at 16,384, behind 2.7-3.2x at 65,536; NVIDIA H100 80GB HBM3,
+    # 700.00 W; chip_smoke.py --gates)
     vector_host_scan_max_rows: int = 1 << 16
     # allow the TopN block pruner (setting enable_top_n)
     enable_topn: bool = True

@@ -5,9 +5,8 @@ type_check/search.rs): ``match(col, 'q', 'fuzziness=1;operator=AND')``
 scores with BM25 (k1=1.2, b=0.75, Lucene idf), ``query('col:a AND b')``
 supports boolean syntax, quoted phrases match on stored positions
 (reference inverted_index_reader.rs:154-239). Scoring is a segmented
-sparse accumulation over the CSR postings — on device (one jitted
-segment-sum program, device.py) for blocks above DEVICE_MIN_DOCS, numpy
-below that.
+sparse accumulation over the CSR postings — on device (one segment-sum
+program, device.py) for blocks above DEVICE_MIN_DOCS, numpy below that.
 """
 
 from __future__ import annotations
@@ -27,8 +26,10 @@ B = 0.75
 
 # blocks at least this large get a cached DeviceBM25 for the top-k
 # serving path (full-score materialization stays on host numpy: shipping
-# a [n_docs] score vector off-device costs more than scoring it)
-DEVICE_MIN_DOCS = 20_000
+# a [n_docs] score vector off-device costs more than scoring it); the
+# served path's gate, service/prepared.py _MatchServer.DEVICE_MIN_DOCS,
+# measured on the card (NVIDIA H100 80GB HBM3, 700.00 W)
+DEVICE_MIN_DOCS = 2_000
 
 
 @dataclass

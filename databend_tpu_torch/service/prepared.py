@@ -871,9 +871,11 @@ class _MatchServer:
     merges across blocks on host (k rows each). This is the SQL product path
     of the batched BM25 kernel (``ops.impact_bm25``)."""
 
-    # below this corpus size the generic path scores on the host (the
-    # reference's gate, kept until it is re-measured on the H100)
-    DEVICE_MIN_DOCS = 20_000
+    # below this corpus size the generic path scores on the host: served
+    # match() beats it from the smallest table measured, 2,000 docs (B = 1:
+    # 2.2-2.3 against 5.4-7.4 ms; B = 8: 2.3-2.4 against 28-43 ms; NVIDIA
+    # H100 80GB HBM3, 700.00 W; chip_smoke.py --gates)
+    DEVICE_MIN_DOCS = 2_000
 
     def __init__(self, ctx, shape: _MatchShape):
         self.ctx = ctx

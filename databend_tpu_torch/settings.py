@@ -32,17 +32,21 @@ DEFAULT_SETTINGS: Dict[str, SettingDef] = {
         SettingDef("hnsw_ef_search_scale", 4,
                    "ef = scale * limit for HNSW search (reference hnsw.rs:108)", (1, 64)),
         SettingDef("vector_search_mode", "auto",
-                   "per-block KNN strategy: auto = exact MXU scan for blocks"
+                   "per-block KNN strategy: auto = exact scan for blocks"
                    " up to vector_exact_scan_max_rows (faster AND exact on"
-                   " TPU), hnsw = always graph search, exact = always scan"),
+                   " the card), hnsw = always graph search, exact = always"
+                   " scan"),
         SettingDef("vector_exact_scan_max_rows", 1 << 20,
-                   "auto mode: blocks with fewer rows use the exact MXU scan"
-                   " instead of HNSW (the 262k-row reference block cap is"
-                   " far below the crossover on TPU)", (0, 1 << 40)),
+                   "auto mode: blocks with at most this many rows use the"
+                   " exact scan instead of HNSW (H100: a top-10 over 1M"
+                   " rows in blocks of 65,536 to 1,048,576 takes 9-18 ms"
+                   " exact, 71-529 ms through the graphs at ef = 40)",
+                   (0, 1 << 40)),
         SettingDef("vector_host_scan_max_rows", 1 << 16,
                    "corpora at or below this many total rows are scored on"
-                   " the host (numpy) — a device dispatch costs a full RTT,"
-                   " which dwarfs small scans", (0, 1 << 40)),
+                   " the host (numpy): on an H100 the host scan wins at"
+                   " 4,096 rows, splits the runs at 16,384 and loses"
+                   " 2.7-3.2x at 65,536", (0, 1 << 40)),
         SettingDef("vector_search_bf16", True,
                    "score candidates in bfloat16 on the MXU (exact rerank keeps recall)"),
         SettingDef("enable_vector_index", True, "use HNSW indexes for KNN queries"),
@@ -68,18 +72,21 @@ DEFAULT_SETTINGS: Dict[str, SettingDef] = {
                    ".rs:62; see pipeline/device_scan_agg.py)"),
         SettingDef("device_scan_agg_min_rows", 300_000,
                    "table row count below which scan-aggregates stay on the"
-                   " host (measured crossover, benchmarks/device_route_bench"
-                   ".py: at 100k rows the host finishes inside one device"
-                   " RTT; from 300k the device wins 4-114x)", (0, 1 << 40)),
-        SettingDef("device_scan_agg_max_groups", 64,
-                   "dense group-grid ceiling for the device scan-aggregate"
-                   " route; above it the host factorize path wins (masked"
-                   " per-group reductions scale with G; scatters serialize"
-                   " on TPU)", (0, 1 << 20)),
-        SettingDef("device_scan_agg_max_groups_matmul", 65536,
-                   "group-grid ceiling for the one-hot int8 MXU matmul"
-                   " grouping engine (grids above device_scan_agg_max_groups"
-                   " ride the MXU)", (0, 1 << 24)),
+                   " host (H100, TPC-H lineitem: from 300k rows the warm"
+                   " routed statement beats the host in every shape swept,"
+                   " 1.3-7x; at 60k and 120k rows q3 or q10 lost a run)",
+                   (0, 1 << 40)),
+        SettingDef("device_scan_agg_max_groups", 16,
+                   "group-grid ceiling for the mask engine (the grouped-sum"
+                   " kernel, MIN/MAX by per-group atomics); above it the"
+                   " sort engine takes the grid (H100, 6M rows: at 12-512"
+                   " groups the mask engine's MIN/MAX ran 1.3-2.2x slower"
+                   " than the sort engine's)", (0, 1 << 20)),
+        SettingDef("device_scan_agg_max_groups_matmul", 16,
+                   "group-grid ceiling for the matmul engine (the grouped-"
+                   "sum kernel over lo/hi value rows, no MIN/MAX) above"
+                   " device_scan_agg_max_groups (H100, 6M rows: the sort"
+                   " engine was as fast from 12 groups on)", (0, 1 << 24)),
         SettingDef("spill_storage_location", "",
                    "where sort/aggregate/join spills go: '' = local"
                    " tempdir (disk spill); an operator URI prefix"
@@ -92,18 +99,18 @@ DEFAULT_SETTINGS: Dict[str, SettingDef] = {
                    " LUT builds are O(dim rows))", (0, 1 << 32)),
         SettingDef("device_scan_agg_max_groups_sort", 1 << 22,
                    "group-grid ceiling for the sort grouping engine"
-                   " (device lax.sort by group id + segment prefix-sums;"
+                   " (a device sort by group id + segment prefix-sums;"
                    " covers huge grids, MIN/MAX beyond the mask cap, and"
-                   " COUNT(DISTINCT)); result transfer is [K, G] i32, so"
-                   " very large grids are transfer-bound", (0, 1 << 24)),
-        SettingDef("device_scan_agg_max_pull_mb", 16,
+                   " COUNT(DISTINCT)); H100, 6M rows: at 4,194,304 groups"
+                   " it still beats the host 2.4-3.2x", (0, 1 << 24)),
+        SettingDef("device_scan_agg_max_pull_mb", 64,
                    "un-fused grid-result transfer budget in MB: a device"
                    " scan/join-aggregate whose [K, G] grid pull would"
-                   " exceed this bails to the host (the link is the"
-                   " bottleneck at huge G). HAVING/ORDER BY/LIMIT fused"
-                   " finalize (device_fusion) is exempt — it only pulls"
-                   " the selected rows. 0 disables the screen",
-                   (0, 1 << 20)),
+                   " exceed this bails to the host (H100: a 64 MB pull at"
+                   " 4,194,304 groups still beats the host 2.4-2.7x)."
+                   " HAVING/ORDER BY/LIMIT fused finalize (device_fusion)"
+                   " is exempt — it only pulls the selected rows. 0"
+                   " disables the screen", (0, 1 << 20)),
         SettingDef("enable_cbo", True,
                    "cost-based optimizer: filter pushdown + DP join"
                    " reordering (reference optimizers/{cascades,hyper_dp})"),

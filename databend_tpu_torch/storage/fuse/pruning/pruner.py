@@ -300,10 +300,12 @@ class FusePruner:
             if dist is not None:
                 return dist
 
-        # per-block search, ef = 4*limit. TPU-first strategy choice: the
-        # exact MXU scan beats graph traversal below ~1M rows/block
-        # (measured: 100k-row HNSW search 97 QPS @ recall 0.69 vs exact
-        # scan 263k QPS @ recall ~0.99 on v5e), so auto mode prefers it.
+        # per-block search, ef = 4*limit. The exact scan beats graph
+        # traversal up to 1M-row blocks (a top-10 over 1M rows: 9-18 ms
+        # exact at recall 1.0, 71-529 ms through the graphs at recall
+        # 0.66-0.95 for blocks of 1,048,576 to 65,536 rows; NVIDIA H100
+        # 80GB HBM3, 700.00 W; chip_smoke.py --gates), so auto mode
+        # prefers it.
         # Exact-scan blocks are STACKED into one device program per query
         # (one dispatch, not one per block); HNSW blocks search per-graph.
         mode = self.pushdown.vector_search_mode

@@ -50,9 +50,11 @@ DEFAULT_ROW_PER_BLOCK = 262144  # reference caps vector-cluster batches here
 DEFAULT_HNSW_M = 16             # reference vector_index_writer.rs:54
 DEFAULT_EF_CONSTRUCT = 100      # reference vector_index_writer.rs:55
 COMMIT_RETRIES = 10
-# blocks at or below this row count serve faster from the exact MXU scan
-# than from a graph (measured crossover, benchmarks/RESULTS.md), so
-# graphs='auto' skips the HNSW build for them
+# blocks at or below this row count serve faster from the exact scan than
+# from a graph (a top-10 over 1M rows: 9-18 ms exact, 71-529 ms through the
+# graphs at ef = 40 for blocks of 1,048,576 to 65,536 rows; NVIDIA H100 80GB
+# HBM3, 700.00 W; chip_smoke.py --gates), so graphs='auto' skips the HNSW
+# build for them; equal to settings.py's vector_exact_scan_max_rows
 GRAPH_BUILD_MIN_ROWS = 1 << 20
 
 
@@ -338,14 +340,16 @@ class FuseTable:
                             idx: TableIndexDef):
         """Per-block vector index at write (reference VectorIndexBuilder).
 
-        TPU-first divergence: centroid/radius STATS are always built (they
-        drive the IVF-style block routing prune), but HNSW GRAPHS are only
-        built when they can win at serving time — the exact MXU scan beats
-        graph traversal for every block below the measured crossover
-        (~1M rows: 245k+ QPS exact vs 97 QPS graph at 100k rows on v5e,
-        benchmarks/RESULTS.md), so building graphs for such blocks is pure
-        write amplification. Index option graphs='always'|'auto'|'never'
-        (default auto = only blocks above the crossover)."""
+        Divergence: centroid/radius STATS are always built (they drive the
+        IVF-style block routing prune), but HNSW GRAPHS are only built when
+        they can win at serving time — the exact scan beats graph traversal
+        for every block up to GRAPH_BUILD_MIN_ROWS (1,048,576 rows: a top-10
+        over 1M rows took 12.8-17.5 ms exact against 71-82 ms through one
+        1M-row graph at ef = 40, recall 1.0 against 0.66; NVIDIA H100 80GB
+        HBM3, 700.00 W; chip_smoke.py --gates), so building graphs for
+        such blocks is pure write amplification. Index option
+        graphs='always'|'auto'|'never' (default auto = only blocks above
+        the gate)."""
         from ...index.hnsw import build_hnsw
         col_name = idx.columns[0]
         col = chunk.column(col_name)
@@ -931,11 +935,12 @@ class FuseTable:
 
     def batch_exact_topk(self, metas: List[BlockMeta], info: VectorIndexInfo,
                          q: np.ndarray, limit: int, host_max_rows: int = 0):
-        """One stacked exact MXU scan over many blocks -> global top-k as
+        """One stacked exact scan over many blocks -> global top-k as
         [(block_idx, row_in_block, score)] (replaces the per-block loop +
         host merge; one device dispatch per query regardless of block count).
-        Corpora <= ``host_max_rows`` are scored on the host instead — one
-        device dispatch costs a full RTT, which dwarfs small scans."""
+        Corpora <= ``host_max_rows`` are scored on the host instead: at
+        4,096 rows the host scan is ahead (NVIDIA H100 80GB HBM3, 700.00 W;
+        chip_smoke.py --gates)."""
         metric = info.func_name.replace("_distance", "")
         total = sum(m.row_count for m in metas)
         if total <= host_max_rows:

@@ -77,13 +77,16 @@ def _load(ctx, expr_mod, types_mod, name, texts, emb, rpb):
 
 @pytest.fixture(scope="module")
 def ctxs(tmp_path_factory):
-    """Table ``mt``: 2,400 rows in 3 blocks. Table ``small``: 50 rows."""
+    """Table ``mt``: 2,400 rows in 3 blocks. Table ``small``: 50 rows.
+    Table ``under``: 1,999 rows in 2 blocks, one doc under the port's
+    served-text gate."""
     texts, emb = _rows(2400, 5)
     j = JaxContext(str(tmp_path_factory.mktemp("jax")))
     t = TorchContext(str(tmp_path_factory.mktemp("torch")))
     for ctx, e, ty in ((j, jexpr, jtypes), (t, texpr, ttypes)):
         _load(ctx, e, ty, "mt", texts, emb, 1000)
         _load(ctx, e, ty, "small", texts[:50], emb[:50], 1000)
+        _load(ctx, e, ty, "under", texts[:1999], emb[:1999], 1000)
     yield j, t, emb
     j.close()
     t.close()
@@ -181,8 +184,9 @@ def test_match_below_device_threshold_uses_generic(ctxs):
     j, t, _ = ctxs
     sql = ("SELECT id FROM {tb} WHERE match(body, {p}) "
            "ORDER BY score() DESC LIMIT 3")
-    assert TorchMatch.DEVICE_MIN_DOCS == JaxMatch.DEVICE_MIN_DOCS == 20_000
-    for tb in ("small", "mt"):
+    assert TorchMatch.DEVICE_MIN_DOCS == 2_000
+    assert JaxMatch.DEVICE_MIN_DOCS == 20_000
+    for tb in ("small", "under"):
         tp = t.prepare(sql.format(tb=tb, p="?"))
         got = tp.execute("weather").rows()
         assert not tp._match.refresh() and tp._match._snap_id is None

@@ -212,7 +212,7 @@ with tempfile.TemporaryDirectory() as root:
     bodies = [" ".join(p) for p in picks]
     bodies[7] = "whale whale whale"
     ctx.sql(f"CREATE TABLE big (id BIGINT, body VARCHAR, emb VECTOR({d})) "
-            "ROW_PER_BLOCK='16384'")
+            "ROW_PER_BLOCK='2048'")
     ctx.sql("CREATE INVERTED INDEX big_i ON big(body)")
     xb = rng.standard_normal((nb, d)).astype(np.float32)
     ctx.insert_block("big", DataBlock(

@@ -312,7 +312,7 @@ def test_prepared_match_matches_jax(tmp_path, monkeypatch):
         sql = ("SELECT id, score() FROM mt WHERE match(body, ?) "
                "ORDER BY score() DESC LIMIT 7")
         jp, tp = j.prepare(sql), t.prepare(sql)
-        assert TorchMatch.DEVICE_MIN_DOCS == 20_000
+        assert TorchMatch.DEVICE_MIN_DOCS == 2_000
         assert tp._match is not None and not tp._match.refresh()
         monkeypatch.setattr(TorchMatch, "DEVICE_MIN_DOCS", 0)
         assert tp._match.refresh() and tp._match._snap_id is not None

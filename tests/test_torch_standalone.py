@@ -81,6 +81,14 @@ PORT_OWN = {
     "meta/cluster.py": "local_node counts the port's devices and "
                        "registers their kind and card ids",
     "utils/perf.py": "stack paths compress at databend_tpu_torch/",
+    "settings.py": "the route gates' defaults and help texts measured on "
+                   "the H100 (chip_smoke.py --gates): the scan-aggregate "
+                   "route's mask and matmul caps 16, its pull screen 64 MB",
+    "catalog/pushdown.py": "the vector gates' comments state the H100's "
+                           "crossovers; the defaults equal the port's "
+                           "settings",
+    "index/inverted/reader.py": "DEVICE_MIN_DOCS, the twin of the served "
+                                "match() gate, at the H100's 2,000 docs",
 }
 
 
