@@ -5,6 +5,8 @@ compiled with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the
 repository root (the file name carries a hash of the source, so an edited
 kernel is rebuilt) and loaded with ``ctypes``. Nothing here runs at import
 time; a machine without ``nvcc`` fails only when a kernel is first launched.
+A compile is a ``kernel_build`` span and counts in the ``kernel_builds`` and
+``kernel_build_seconds`` metrics.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ..utils.metrics import METRICS
+from ..utils.tracing import span
 
 PORT_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PORT_DIR, "csrc")
@@ -54,16 +59,21 @@ def build(name: str) -> dict:
             return {"path": out, "seconds": 0.0, "log": f.read()}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
-    log = proc.stdout + proc.stderr
-    with open(out + ".log", "w") as f:
-        f.write(log)
-    os.replace(tmp, out)
-    return {"path": out, "seconds": time.perf_counter() - t0, "log": log}
+    with span("kernel_build", kernel=name) as s:
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+        log = proc.stdout + proc.stderr
+        with open(out + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp, out)
+        s.attrs["seconds"] = seconds = time.perf_counter() - t0
+    METRICS.inc("kernel_builds")
+    METRICS.inc("kernel_build_seconds", seconds)
+    return {"path": out, "seconds": seconds, "log": log}
 
 
 @functools.cache

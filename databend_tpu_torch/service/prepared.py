@@ -37,11 +37,22 @@ ascending row id, as the reference's ``lax.top_k(-d, k)`` does.
 ``_MatchServer.DEVICE_MIN_DOCS`` rows are served from per-block device BM25
 scorers (``index/inverted/device.py``), text-only and fused with a vector
 distance.
+
+Each call that ``_KnnServer`` serves is one ``knn_batch`` span
+(``utils/tracing.py``) with a query id of its own, or the statement's
+under ``EXECUTE``. Its children name the host's steps: ``knn_refresh``
+(with ``knn_load_corpus`` when the snapshot changed), ``knn_params``,
+``knn_upload``, ``knn_launch`` (the enqueue of every chunk),
+``knn_fetch`` (the wait on the card and the copy back), ``knn_take`` and
+``knn_block``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import itertools
+import time
 from dataclasses import dataclass
 from typing import Any, List, Optional, Sequence
 
@@ -59,6 +70,11 @@ from ..sql.parser import Parser
 from ..storage.fuse.table import (_QUERY_CHUNK, _exact_topk_program,
                                   _rescore_l2)
 from ..utils.cache import CacheManager
+from ..utils.metrics import METRICS
+from ..utils.tracing import (current_query_id, reset_query_id,
+                             set_query_id, span)
+
+_CALLS = itertools.count()      # query ids of prepared KNN calls
 
 
 # ---------------------------------------------------------------- substitution
@@ -324,6 +340,27 @@ def _scan_topk_filtered_program(Q: torch.Tensor, x: torch.Tensor, k: int,
     return vals, ids.to(torch.int32)
 
 
+def _chunks(Q) -> int:
+    """Query chunks of a batch: the serving programs' launches in turn."""
+    return -(-Q.shape[0] // _QUERY_CHUNK)
+
+
+@contextlib.contextmanager
+def _knn_call(exact: bool):
+    """The root span of one call ``_KnnServer`` serves. Its spans share a
+    query id: the statement's under ``EXECUTE``, else one of the call's own
+    (``q<n>_<ms>``, ``n`` counted over the process)."""
+    token = None
+    if current_query_id() is None:
+        token = set_query_id(f"q{next(_CALLS)}_{int(time.time() * 1e3)}")
+    try:
+        with span("knn_batch", exact=exact) as root:
+            yield root
+    finally:
+        if token is not None:
+            reset_query_id(token)
+
+
 class _KnnServer:
     """Bound KNN serving state: the stacked HBM corpus + host projection
     block for one table snapshot; ONE device dispatch per query batch."""
@@ -346,6 +383,10 @@ class _KnnServer:
     # Returns False when the fast path cannot serve (no index / view /
     # missing table state) — caller falls back to the generic path.
     def refresh(self) -> bool:
+        with span("knn_refresh"):
+            return self._refresh()
+
+    def _refresh(self) -> bool:
         sh = self.shape
         try:
             table = self.ctx.table(sh.table, sh.database)
@@ -379,34 +420,38 @@ class _KnnServer:
             return True
         if snap.snapshot_id == self._snap_id:
             return True
-        metas = [m for seg in table.read_segments(snap) for m in seg.blocks]
-        if not metas:
-            self._snap_id, self._n = snap.snapshot_id, 0
+        with span("knn_load_corpus"):
+            metas = [m for seg in table.read_segments(snap)
+                     for m in seg.blocks]
+            if not metas:
+                self._snap_id, self._n = snap.snapshot_id, 0
+                return True
+            self._x, _ = table.stacked_device_vectors(
+                metas, sh.column, normalized=(metric == "cosine"))
+            self._dim = vt.dim
+            self._n = sum(m.row_count for m in metas)
+            with span("knn_projection"):
+                # host projection block in corpus row order
+                proj: List[tuple] = []
+                for kind, name, out in sh.items:
+                    if kind == "star":
+                        for fname in table.schema.field_names():
+                            proj.append((fname, fname))
+                    elif kind == "col":
+                        proj.append((table.schema.field(name).name, out))
+                self._proj_names = proj
+                src_names = list(dict.fromkeys(n for n, _ in proj))
+                if src_names:
+                    self._proj = DataBlock.concat(
+                        [table.read_block(m, src_names) for m in metas])
+                else:
+                    self._proj = None
+            with span("knn_filters"):
+                if not self._setup_filters(table, metas):
+                    return False
+            self._table = table
+            self._snap_id = snap.snapshot_id
             return True
-        self._x, _ = table.stacked_device_vectors(
-            metas, sh.column, normalized=(metric == "cosine"))
-        self._dim = vt.dim
-        self._n = sum(m.row_count for m in metas)
-        # host projection block in corpus row order
-        proj: List[tuple] = []
-        for kind, name, out in sh.items:
-            if kind == "star":
-                for fname in table.schema.field_names():
-                    proj.append((fname, fname))
-            elif kind == "col":
-                proj.append((table.schema.field(name).name, out))
-        self._proj_names = proj
-        src_names = list(dict.fromkeys(n for n, _ in proj))
-        if src_names:
-            self._proj = DataBlock.concat(
-                [table.read_block(m, src_names) for m in metas])
-        else:
-            self._proj = None
-        if not self._setup_filters(table, metas):
-            return False
-        self._table = table
-        self._snap_id = snap.snapshot_id
-        return True
 
     def _setup_filters(self, table, metas) -> bool:
         """Build the per-snapshot device state: the cache key of the
@@ -595,17 +640,26 @@ class _KnnServer:
         k = min(self.shape.k, self._n)
         if self._static_mask is not None:
             return self._topk_filtered(Q, exact, fvals or [], metric, k)
-        Qd = backend.to_device(Q)
-        if not exact and Q.shape[0] > _QUERY_CHUNK and self._n \
-                and metric in ("l2", "cosine"):
-            vals, ids = self._flash_select(Qd, metric, k)
-        else:
-            vals, ids = _scan_topk_program(Qd, self._x, k, metric, self._n)
-        vals, ids = backend.to_numpy([vals, ids])
-        # ONE bulk gather for all B result sets; per-query blocks are
-        # zero-copy slices of it
-        taken_all = (self._proj.take(ids.reshape(-1))
-                     if self._proj is not None else None)
+        with span("knn_upload"):
+            Qd = backend.to_device(Q)
+        with span("knn_launch", chunks=_chunks(Q)):
+            if not exact and Q.shape[0] > _QUERY_CHUNK and self._n \
+                    and metric in ("l2", "cosine"):
+                vals, ids = self._flash_select(Qd, metric, k)
+            else:
+                vals, ids = _scan_topk_program(Qd, self._x, k, metric,
+                                               self._n)
+        return self._fetch_take(vals, ids, k)
+
+    def _fetch_take(self, vals, ids, k: int):
+        """The device results in host memory (the wait on the card, then
+        the copy) and ONE bulk gather of the projection for all B result
+        sets; per-query blocks are zero-copy slices of it."""
+        with span("knn_fetch"):
+            vals, ids = backend.to_numpy([vals, ids])
+        with span("knn_take"):
+            taken_all = (self._proj.take(ids.reshape(-1))
+                         if self._proj is not None else None)
         return vals, ids, taken_all, k
 
     def _topk_filtered(self, Q: np.ndarray, exact: bool,
@@ -614,14 +668,14 @@ class _KnnServer:
         comparisons (see _scan_topk_filtered_program). Exact in both
         modes."""
         f_ops = tuple(pf.op for pf in self.shape.where_params or [])
-        vals, ids = _scan_topk_filtered_program(
-            backend.to_device(Q), self._x, k, metric, self._n,
-            self._static_mask, self._fcols,
-            [backend.to_device(v) for v in fvals], f_ops)
-        vals, ids = backend.to_numpy([vals, ids])
-        taken_all = (self._proj.take(ids.reshape(-1))
-                     if self._proj is not None else None)
-        return vals, ids, taken_all, k
+        with span("knn_upload"):
+            Qd = backend.to_device(Q)
+            fd = [backend.to_device(v) for v in fvals]
+        with span("knn_launch", chunks=_chunks(Q)):
+            vals, ids = _scan_topk_filtered_program(
+                Qd, self._x, k, metric, self._n, self._static_mask,
+                self._fcols, fd, f_ops)
+        return self._fetch_take(vals, ids, k)
 
     def _empty_result(self):
         from .session import QueryResult
@@ -631,86 +685,93 @@ class _KnnServer:
                       [Column.from_pylist([], f.dtype) for f in fields]),
             fields)
 
-    def run_batch(self, queries: np.ndarray, exact: bool = True,
+    def run_batch(self, Q: np.ndarray, exact: bool = True,
                   fvals: Optional[List[np.ndarray]] = None):
+        """One QueryResult a query of ``Q`` (checked by
+        ``_check_queries``)."""
         from .session import QueryResult
         sh = self.shape
-        Q = self._check_queries(queries)
         if self._n == 0:
-            return [self._empty_result() for _ in range(Q.shape[0])]
+            with span("knn_block"):
+                return [self._empty_result() for _ in range(Q.shape[0])]
         vals, ids, taken_all, k = self._topk(Q, exact, fvals)
-        fields = self._fields()
-        schema_names = self._table.schema.field_names()
-        filtered = self._static_mask is not None
-        out = []
-        for b in range(Q.shape[0]):
-            taken = (taken_all.slice(b * k, (b + 1) * k)
-                     if taken_all is not None else None)
-            keep = None
-            vb = np.asarray(vals[b], np.float32)
-            if filtered and not np.isfinite(vb).all():
-                # fewer than k rows matched this query's predicate
-                keep = np.isfinite(vb)
-                vb = vb[keep]
-                if taken is not None:
-                    taken = taken.filter(keep)
-            cols, names = [], []
-            for kind, name, outn in sh.items:
-                if kind == "star":
-                    for fname in schema_names:
-                        names.append(fname)
-                        cols.append(taken.column(fname))
-                elif kind == "col":
-                    src = self._table.schema.field(name).name
-                    names.append(outn)
-                    cols.append(taken.column(src))
-                else:
-                    names.append(outn)
-                    cols.append(Column(Float32, vb))
-            out.append(QueryResult(DataBlock(names, cols), fields))
-        return out
+        with span("knn_block"):
+            fields = self._fields()
+            schema_names = self._table.schema.field_names()
+            filtered = self._static_mask is not None
+            out = []
+            for b in range(Q.shape[0]):
+                taken = (taken_all.slice(b * k, (b + 1) * k)
+                         if taken_all is not None else None)
+                keep = None
+                vb = np.asarray(vals[b], np.float32)
+                if filtered and not np.isfinite(vb).all():
+                    # fewer than k rows matched this query's predicate
+                    keep = np.isfinite(vb)
+                    vb = vb[keep]
+                    if taken is not None:
+                        taken = taken.filter(keep)
+                cols, names = [], []
+                for kind, name, outn in sh.items:
+                    if kind == "star":
+                        for fname in schema_names:
+                            names.append(fname)
+                            cols.append(taken.column(fname))
+                    elif kind == "col":
+                        src = self._table.schema.field(name).name
+                        names.append(outn)
+                        cols.append(taken.column(src))
+                    else:
+                        names.append(outn)
+                        cols.append(Column(Float32, vb))
+                out.append(QueryResult(DataBlock(names, cols), fields))
+            return out
 
-    def run_batch_block(self, queries: np.ndarray, exact: bool = True,
+    def run_batch_block(self, Q: np.ndarray, exact: bool = True,
                         fvals: Optional[List[np.ndarray]] = None):
         """Bulk-serving mode: ONE QueryResult for the whole batch with a
         leading ``query_index`` column (row b*k+j belongs to query b, rank
         j). No per-query object churn — pure bulk numpy construction, the
-        batch analog of the FAISS-style [B, k] return shape."""
+        batch analog of the FAISS-style [B, k] return shape. ``Q`` is
+        checked by ``_check_queries``."""
         from ..types import Int64
         from .session import QueryResult
         sh = self.shape
-        Q = self._check_queries(queries)
-        B = Q.shape[0]
         if self._n == 0:
-            fields = [DataField("query_index", Int64)] + self._empty_fields()
-            return QueryResult(
-                DataBlock([f.name for f in fields],
-                          [Column.from_pylist([], f.dtype) for f in fields]),
-                fields)
+            with span("knn_block"):
+                fields = [DataField("query_index", Int64)] \
+                    + self._empty_fields()
+                return QueryResult(
+                    DataBlock([f.name for f in fields],
+                              [Column.from_pylist([], f.dtype)
+                               for f in fields]),
+                    fields)
         vals, ids, taken_all, k = self._topk(Q, exact, fvals)
-        qidx = np.repeat(np.arange(B, dtype=np.int64), k)
-        flat_vals = np.ascontiguousarray(vals.reshape(-1), np.float32)
-        if self._static_mask is not None and not np.isfinite(flat_vals).all():
-            keep = np.isfinite(flat_vals)
-            qidx, flat_vals = qidx[keep], flat_vals[keep]
-            if taken_all is not None:
-                taken_all = taken_all.filter(keep)
-        names = ["query_index"]
-        cols = [Column(Int64, qidx)]
-        fields = [DataField("query_index", Int64)] + self._fields()
-        for kind, name, outn in sh.items:
-            if kind == "star":
-                for fname in self._table.schema.field_names():
-                    names.append(fname)
-                    cols.append(taken_all.column(fname))
-            elif kind == "col":
-                src = self._table.schema.field(name).name
-                names.append(outn)
-                cols.append(taken_all.column(src))
-            else:
-                names.append(outn)
-                cols.append(Column(Float32, flat_vals))
-        return QueryResult(DataBlock(names, cols), fields)
+        with span("knn_block"):
+            qidx = np.repeat(np.arange(Q.shape[0], dtype=np.int64), k)
+            flat_vals = np.ascontiguousarray(vals.reshape(-1), np.float32)
+            if self._static_mask is not None \
+                    and not np.isfinite(flat_vals).all():
+                keep = np.isfinite(flat_vals)
+                qidx, flat_vals = qidx[keep], flat_vals[keep]
+                if taken_all is not None:
+                    taken_all = taken_all.filter(keep)
+            names = ["query_index"]
+            cols = [Column(Int64, qidx)]
+            fields = [DataField("query_index", Int64)] + self._fields()
+            for kind, name, outn in sh.items:
+                if kind == "star":
+                    for fname in self._table.schema.field_names():
+                        names.append(fname)
+                        cols.append(taken_all.column(fname))
+                elif kind == "col":
+                    src = self._table.schema.field(name).name
+                    names.append(outn)
+                    cols.append(taken_all.column(src))
+                else:
+                    names.append(outn)
+                    cols.append(Column(Float32, flat_vals))
+            return QueryResult(DataBlock(names, cols), fields)
 
 
 # -------------------------------------------------------- match() fast path
@@ -1196,18 +1257,10 @@ class PreparedStatement:
             raise BadArguments(
                 f"prepared statement expects {self.param_count} parameters,"
                 f" got {len(params)}")
-        if self._knn is not None and self._params_agree(params) \
-                and self._knn.refresh():
-            if self._knn.has_filters:
-                parsed = self._split_param_sets([params])
-                if parsed is not None:
-                    Q, fvals = parsed
-                    return self._knn.run_batch(Q, fvals=fvals)[0]
-            else:
-                q = np.asarray(params[self._knn.shape.param_index],
-                               np.float32)
-                return self._knn.run_batch(
-                    q[None, :] if q.ndim == 1 else q)[0]
+        if self._knn is not None:
+            res = self._serve_knn(lambda: self._one_query(params), True)
+            if res is not None:
+                return res[0]
         if self._match is not None:
             ext = self._match.extract_batch([params], self.param_count)
             if ext is not None and self._match.can_serve_texts(ext[0]):
@@ -1224,18 +1277,11 @@ class PreparedStatement:
         vectors. Returns one QueryResult per execution. ``exact=False``
         selects with the TPU approx k-selector (recall_target 0.99,
         ~an order of magnitude cheaper than the full sort)."""
-        if self._knn is not None and self._knn.refresh():
-            if self._knn.has_filters:
-                norm = self._normalize_sets(param_sets)
-                parsed = self._split_param_sets(norm) if norm is not None \
-                    else None
-                if parsed is not None:
-                    Q, fvals = parsed
-                    return self._knn.run_batch(Q, exact, fvals)
-            else:
-                arr = self._as_query_matrix(param_sets)
-                if arr is not None:
-                    return self._knn.run_batch(arr, exact)
+        if self._knn is not None:
+            res = self._serve_knn(lambda: self._batch_queries(param_sets),
+                                  exact)
+            if res is not None:
+                return res
         if self._match is not None:
             ext = self._match.extract_batch(param_sets, self.param_count)
             if ext is not None and self._match.can_serve_texts(ext[0]):
@@ -1252,6 +1298,59 @@ class PreparedStatement:
                 ps = (list(ps),)
             out.append(self.execute(*ps))
         return out
+
+    def _serve_knn(self, parse, exact: bool, block: bool = False):
+        """One call served by ``_KnnServer`` under its ``knn_batch`` span:
+        refresh, ``parse()`` (the parameter sets as ``(Q, fvals)``, or None)
+        and the check of ``Q``, then the batch: a result a query, or with
+        ``block`` one result block. None where the server declines (the
+        caller takes the generic path); with ``block`` it raises instead."""
+        knn = self._knn
+        with _knn_call(exact) as root:
+            if not knn.refresh():
+                if block:
+                    raise BadArguments(
+                        "execute_batch_block requires the batched KNN fast "
+                        "path (single indexed table, ORDER BY distance "
+                        "LIMIT k)")
+                return None
+            with span("knn_params"):
+                parsed = parse()
+                if parsed is None:
+                    if block:
+                        raise BadArguments(
+                            "execute_batch_block expects full parameter "
+                            "tuples (query vector + filter operands)"
+                            if knn.has_filters else
+                            "execute_batch_block expects a [B, dim] batch "
+                            "of query vectors")
+                    return None
+                Q, fvals = parsed
+                Q = knn._check_queries(Q)
+            root.attrs["queries"] = Q.shape[0]
+            out = (knn.run_batch_block if block else knn.run_batch)(
+                Q, exact, fvals)
+        METRICS.inc("knn_batches")
+        METRICS.inc("knn_queries", Q.shape[0])
+        return out
+
+    def _one_query(self, params):
+        """``(Q, fvals)`` of one execution's parameters, or None."""
+        if not self._params_agree(params):
+            return None
+        if self._knn.has_filters:
+            return self._split_param_sets([params])
+        return np.asarray(params[self._knn.shape.param_index],
+                          np.float32), None
+
+    def _batch_queries(self, param_sets):
+        """``(Q, fvals)`` of a batch's parameter sets, or None."""
+        if self._knn.has_filters:
+            norm = self._normalize_sets(param_sets)
+            return self._split_param_sets(norm) if norm is not None \
+                else None
+        arr = self._as_query_matrix(param_sets)
+        return (arr, None) if arr is not None else None
 
     def _normalize_sets(self, param_sets) -> Optional[List[tuple]]:
         out = []
@@ -1307,26 +1406,12 @@ class PreparedStatement:
         the whole batch with a leading ``query_index`` column. Only the
         KNN fast path supports it (raises otherwise) — this is the shape
         high-throughput serving loops should use."""
-        if self._knn is None or not self._knn.refresh():
+        if self._knn is None:
             raise BadArguments(
                 "execute_batch_block requires the batched KNN fast path "
                 "(single indexed table, ORDER BY distance LIMIT k)")
-        if self._knn.has_filters:
-            norm = self._normalize_sets(param_sets)
-            parsed = self._split_param_sets(norm) if norm is not None \
-                else None
-            if parsed is None:
-                raise BadArguments(
-                    "execute_batch_block expects full parameter tuples "
-                    "(query vector + filter operands)")
-            Q, fvals = parsed
-            return self._knn.run_batch_block(Q, exact, fvals)
-        arr = self._as_query_matrix(param_sets)
-        if arr is None:
-            raise BadArguments(
-                "execute_batch_block expects a [B, dim] batch of query "
-                "vectors")
-        return self._knn.run_batch_block(arr, exact)
+        return self._serve_knn(lambda: self._batch_queries(param_sets),
+                               exact, block=True)
 
     def _as_query_matrix(self, param_sets) -> Optional[np.ndarray]:
         """[B, d] f32 matrix when every param set is just one vector."""

@@ -19,6 +19,13 @@ TPU-serving engine:
 In the port the vector columns are torch tensors on ``backend.device()``
 and the exact scans (``_exact_topk_program``, ``_stacked_scores_program``)
 run eagerly; each call brings its results to the host with one copy.
+
+Spans (``utils/tracing.py``): ``fuse_append`` around an append, with
+``fuse_normalize``, ``fuse_cluster_sort``, ``fuse_write_block`` (each
+block's parquet encode and write), ``fuse_block_indexes`` (its stats,
+bloom, vector and other indexes) and ``fuse_commit``; ``fuse_read_block``
+around a block's decode on a cache miss; ``fuse_stack`` and
+``fuse_upload`` around the stacked corpus's host assembly and upload.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ...expression import Column, DataBlock
 from ...expression.schema import TableSchema
 from ...types import VectorType
 from ...utils.cache import CacheManager
+from ...utils.tracing import span
 from . import block_io
 from ..operator import OPERATOR
 from .snapshot import (BlockMeta, SegmentInfo, TableSnapshot, new_uuid,
@@ -192,20 +200,26 @@ class FuseTable:
     def append(self, block: DataBlock, overwrite: bool = False) -> TableSnapshot:
         """Write a DataBlock (splitting into row_per_block chunks), build
         per-block indexes, commit a new snapshot (OCC with retry)."""
-        block = self._normalize_block(block)
-        block, cluster_runs = self._cluster_sort(block)
-        rpb = self.row_per_block()
-        metas: List[BlockMeta] = []
-        for start, end in _block_spans(block.num_rows, rpb, cluster_runs):
-            chunk = block.slice(start, end)
-            if chunk.num_rows == 0:
-                continue
-            metas.append(self._write_block(chunk))
-        segment_loc = None
-        if metas:
-            segment_loc = f"_sg/{new_uuid()}.json"
-            write_json(self.abs_path(segment_loc), SegmentInfo(metas).to_dict())
-        return self._commit([segment_loc] if segment_loc else [], overwrite)
+        with span("fuse_append", rows=block.num_rows):
+            with span("fuse_normalize"):
+                block = self._normalize_block(block)
+            with span("fuse_cluster_sort"):
+                block, cluster_runs = self._cluster_sort(block)
+            rpb = self.row_per_block()
+            metas: List[BlockMeta] = []
+            for start, end in _block_spans(block.num_rows, rpb, cluster_runs):
+                chunk = block.slice(start, end)
+                if chunk.num_rows == 0:
+                    continue
+                metas.append(self._write_block(chunk))
+            with span("fuse_commit"):
+                segment_loc = None
+                if metas:
+                    segment_loc = f"_sg/{new_uuid()}.json"
+                    write_json(self.abs_path(segment_loc),
+                               SegmentInfo(metas).to_dict())
+                return self._commit([segment_loc] if segment_loc else [],
+                                    overwrite)
 
     def _normalize_block(self, block: DataBlock) -> DataBlock:
         """Project/reorder columns to the table schema, fill defaults."""
@@ -265,9 +279,11 @@ class FuseTable:
         uid = new_uuid()
         rel = f"_b/{uid}.parquet"
         OPERATOR.makedirs(self.abs_path("_b"))
-        size = block_io.write_block(self.abs_path(rel), chunk)
-        meta = BlockMeta(rel, chunk.num_rows, size, block_stats(chunk))
-        self._build_block_indexes(meta, chunk, uid)
+        with span("fuse_write_block", rows=chunk.num_rows):
+            size = block_io.write_block(self.abs_path(rel), chunk)
+        with span("fuse_block_indexes"):
+            meta = BlockMeta(rel, chunk.num_rows, size, block_stats(chunk))
+            self._build_block_indexes(meta, chunk, uid)
         return meta
 
     # ------------------------------------------------------------ index build
@@ -840,8 +856,13 @@ class FuseTable:
         # must never serve blocks decoded under the old schema
         key = (self.abs_path(meta.location) + "#"
                + ",".join(f.name for f in self.schema.fields))
-        blk = cache.get_or_load(key, lambda: block_io.read_block(
-            self.abs_path(meta.location), self.schema))
+
+        def load():
+            with span("fuse_read_block", rows=meta.row_count):
+                return block_io.read_block(self.abs_path(meta.location),
+                                           self.schema)
+
+        blk = cache.get_or_load(key, load)
         if projection is not None:
             return blk.project([self.schema.field(n).name for n in projection])
         return blk
@@ -921,15 +942,18 @@ class FuseTable:
             from ...ops.distance import normalize
             # host assembly (NOT device_vectors: those pad to the quantum
             # grid, which would interleave dead rows mid-corpus)
-            arrs = [np.asarray(self.read_block(m, [col_name])
-                               .column(col_name).numpy(), np.float32)
-                    for m in metas]
-            offsets = np.zeros(len(arrs) + 1, np.int64)
-            for i, a in enumerate(arrs):
-                offsets[i + 1] = offsets[i] + a.shape[0]
-            dev = backend.to_device(np.concatenate(arrs, axis=0)
-                                    if len(arrs) > 1 else arrs[0])
-            return (normalize(dev) if normalized else dev), offsets
+            blocks = [self.read_block(m, [col_name]) for m in metas]
+            with span("fuse_stack", blocks=len(metas)):
+                arrs = [np.asarray(b.column(col_name).numpy(), np.float32)
+                        for b in blocks]
+                offsets = np.zeros(len(arrs) + 1, np.int64)
+                for i, a in enumerate(arrs):
+                    offsets[i + 1] = offsets[i] + a.shape[0]
+                host = np.concatenate(arrs, axis=0) if len(arrs) > 1 \
+                    else arrs[0]
+            with span("fuse_upload"):
+                dev = backend.to_device(host)
+                return (normalize(dev) if normalized else dev), offsets
 
         return cm.get_or_load(key, load)
 

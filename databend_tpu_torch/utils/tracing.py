@@ -7,15 +7,25 @@ recorder — ``span("bind")`` context managers nest via a contextvar, each
 query's tree lands in its query_log entry, and ``system.trace_spans``
 exposes the recent flat span list. Export stays in-process (zero-egress
 image); the OTLP wire format would hang off ``SpanRecorder.drain``.
+
+While ``torch.profiler`` records, a span is also a ``record_function``
+range named ``dbt.<name>`` on the calling thread: a host event on the
+profiler's clock, around the device work it enqueues. With the profiler
+off a span costs one check more. Span names use ``_``:
+``system.query_execution`` reads a dotted path as an operator.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+from torch._C._autograd import _profiler_enabled
+from torch.profiler import record_function
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar(
     "dbtpu_span", default=None)
@@ -52,14 +62,12 @@ class SpanRecorder:
 
     def __init__(self, capacity: int = MAX_SPANS):
         self._lock = threading.Lock()
-        self._spans: List[Span] = []
+        self._spans: collections.deque = collections.deque(maxlen=capacity)
         self.capacity = capacity
 
     def record(self, s: Span) -> None:
         with self._lock:
             self._spans.append(s)
-            if len(self._spans) > self.capacity:
-                del self._spans[: len(self._spans) - self.capacity]
 
     def snapshot(self) -> List[Span]:
         with self._lock:
@@ -67,8 +75,8 @@ class SpanRecorder:
 
     def drain(self) -> List[Span]:
         with self._lock:
-            out = self._spans
-            self._spans = []
+            out = list(self._spans)
+            self._spans.clear()
             return out
 
 
@@ -92,17 +100,23 @@ def reset_query_id(token) -> None:
 @contextlib.contextmanager
 def span(name: str, **attrs):
     """Nested timing span; records on exit (even on error, with the
-    exception type attached like the reference's span events)."""
+    exception type attached like the reference's span events). While the
+    profiler records, also the range ``dbt.<name>``."""
     parent = _CURRENT.get()
     s = Span(name, parent, _QUERY_ID.get())
     s.attrs.update(attrs)
     token = _CURRENT.set(s)
+    rng = record_function("dbt." + name) if _profiler_enabled() else None
+    if rng is not None:
+        rng.__enter__()
     try:
         yield s
     except BaseException as e:
         s.attrs["error"] = type(e).__name__
         raise
     finally:
+        if rng is not None:
+            rng.__exit__(None, None, None)
         s.end = time.perf_counter()
         _CURRENT.reset(token)
         RECORDER.record(s)

@@ -81,6 +81,8 @@ PORT_OWN = {
     "meta/cluster.py": "local_node counts the port's devices and "
                        "registers their kind and card ids",
     "utils/perf.py": "stack paths compress at databend_tpu_torch/",
+    "utils/tracing.py": "spans also enter torch.profiler ranges while it "
+                        "records; deque ring",
     "settings.py": "the route gates' defaults and help texts measured on "
                    "the H100 (chip_smoke.py --gates): the scan-aggregate "
                    "route's mask and matmul caps 16, its pull screen 64 MB",
