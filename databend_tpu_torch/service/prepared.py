@@ -45,6 +45,16 @@ under ``EXECUTE``. Its children name the host's steps: ``knn_refresh``
 ``knn_upload``, ``knn_launch`` (the enqueue of every chunk),
 ``knn_fetch`` (the wait on the card and the copy back), ``knn_take`` and
 ``knn_block``.
+
+``knn_params`` turns a batch's parameter sets into the checked ``[B, d]``
+f32 query matrix. A regular batch (sets of one container type and
+length, or bare vectors of one type) takes a few numpy calls: each vector
+placeholder's column stacked once and the columns compared as
+``np.array_equal`` compares them (a column of the first's own objects is
+only checked for NaN). Any other batch takes the per-set loop, which
+decides everything the bulk path declines. The span's ``bulk`` attribute
+and the counters ``knn_params_bulk`` / ``knn_params_loop`` say which way
+a batch went.
 """
 
 from __future__ import annotations
@@ -71,10 +81,11 @@ from ..storage.fuse.table import (_QUERY_CHUNK, _exact_topk_program,
                                   _rescore_l2)
 from ..utils.cache import CacheManager
 from ..utils.metrics import METRICS
-from ..utils.tracing import (current_query_id, reset_query_id,
-                             set_query_id, span)
+from ..utils.tracing import (current_query_id, current_span,
+                             reset_query_id, set_query_id, span)
 
 _CALLS = itertools.count()      # query ids of prepared KNN calls
+_VECTOR = (list, tuple, np.ndarray)     # forms of a bound query vector
 
 
 # ---------------------------------------------------------------- substitution
@@ -1232,6 +1243,50 @@ class _MatchServer:
 
 
 # ------------------------------------------------------------------ statement
+def _stack_vectors(vectors) -> Optional[np.ndarray]:
+    """``vectors`` as one ``[B, d]`` f32 array in one numpy call, or None
+    where they are not vectors of one length. Any failure is a None: the
+    per-set loop, which then converts them one by one, raises or refuses
+    as it always did."""
+    try:
+        Q = np.asarray(vectors, np.float32)
+    except Exception:
+        return None
+    return Q if Q.ndim == 2 else None
+
+
+def _single_vectors(param_sets) -> Optional[Sequence[Any]]:
+    """The query vectors of a single-vector batch where its sets take one
+    form: all bare vectors of one type, or all 1-tuples (or 1-lists) of
+    one type around a vector, which the per-set loop unwraps. None for a
+    mixed or other batch."""
+    first = param_sets[0]
+    t = type(first)
+    if t in (list, tuple) and len(first) == 1 \
+            and isinstance(first[0], _VECTOR):
+        if all(type(ps) is t and len(ps) == 1
+               and isinstance(ps[0], _VECTOR) for ps in param_sets):
+            return [ps[0] for ps in param_sets]
+        return None
+    if t not in _VECTOR or any(type(ps) is not t for ps in param_sets):
+        return None
+    if t is not np.ndarray and any(len(ps) == 1
+                                   and isinstance(ps[0], _VECTOR)
+                                   for ps in param_sets):
+        return None
+    return param_sets
+
+
+def _note_params_path(bulk: bool) -> None:
+    """Count the way a batch's parameter sets became its query matrix
+    (``knn_params_bulk`` or ``knn_params_loop``) and mark the open
+    ``knn_params`` span with it."""
+    METRICS.inc("knn_params_bulk" if bulk else "knn_params_loop")
+    s = current_span()
+    if s is not None and s.name == "knn_params":
+        s.attrs["bulk"] = bulk
+
+
 class PreparedStatement:
     """Parse-once / bind-once statement handle (``ctx.prepare(sql)``).
 
@@ -1362,9 +1417,57 @@ class PreparedStatement:
             out.append(tuple(ps))
         return out
 
+    def _bulk_vectors(self, param_sets, cols: Sequence[int]
+                      ) -> Optional[np.ndarray]:
+        """The ``[B, d]`` f32 query matrix of a regular batch in a few
+        numpy calls: a non-empty list or tuple of sets of one list or
+        tuple type, each of ``param_count`` values. The first vector
+        placeholder of ``cols`` is stacked, each other one compared with
+        it as ``np.array_equal`` compares after the f32 conversion (NaN
+        is unequal); one that holds the first's own objects is not
+        converted again, as only a NaN can make it differ. None for any
+        other batch, or where they disagree: the per-set loop then
+        decides, so the bulk path accepts only what the loop accepts,
+        with the same matrix."""
+        if not isinstance(param_sets, (list, tuple)) or not param_sets:
+            return None
+        t, n = type(param_sets[0]), self.param_count
+        if t not in (list, tuple) or any(
+                type(ps) is not t or len(ps) != n for ps in param_sets):
+            return None
+        first = [ps[cols[0]] for ps in param_sets]
+        Q = _stack_vectors(first)
+        if Q is None:
+            return None
+        for c in cols[1:]:
+            col = [ps[c] for ps in param_sets]
+            if all(a is b for a, b in zip(col, first)):
+                if np.isnan(Q).any():
+                    return None
+                continue
+            other = _stack_vectors(col)
+            if other is None or other.shape != Q.shape \
+                    or not (other == Q).all():
+                return None
+        return Q
+
     def _split_param_sets(self, param_sets):
         """For filtered KNN statements: split full parameter tuples into
-        (Q [B, d], per-filter operand arrays). None -> generic fallback."""
+        (Q [B, d], per-filter operand arrays), the vectors in bulk
+        (``_bulk_vectors``) where the batch is regular, else by
+        ``_split_param_sets_loop``. None -> generic fallback."""
+        sh = self._knn.shape
+        Q = self._bulk_vectors(param_sets, sorted(set(sh.param_indices)))
+        _note_params_path(Q is not None)
+        if Q is None:
+            return self._split_param_sets_loop(param_sets)
+        fvals = self._knn.convert_filter_params(
+            [[ps[pf.param_index] for ps in param_sets]
+             for pf in sh.where_params or []])
+        return (Q, fvals) if fvals is not None else None
+
+    def _split_param_sets_loop(self, param_sets):
+        """``_split_param_sets`` one set at a time, for any batch."""
         sh = self._knn.shape
         pfs = sh.where_params or []
         rows, fraw = [], [[] for _ in pfs]
@@ -1414,9 +1517,26 @@ class PreparedStatement:
                                exact, block=True)
 
     def _as_query_matrix(self, param_sets) -> Optional[np.ndarray]:
-        """[B, d] f32 matrix when every param set is just one vector."""
+        """[B, d] f32 matrix when every param set is just one vector: a
+        ``[B, d]`` array as it is, a batch of one form in bulk
+        (``_single_vectors`` or ``_bulk_vectors``), any other batch by
+        ``_query_matrix_loop``."""
         if self.param_count != len(self._knn.shape.param_indices):
             return None
+        Q = None
+        if self.param_count != 1:
+            Q = self._bulk_vectors(param_sets, range(self.param_count))
+        elif isinstance(param_sets, np.ndarray) and param_sets.ndim == 2:
+            Q = np.asarray(param_sets, np.float32)
+        elif isinstance(param_sets, (list, tuple)) and param_sets:
+            vectors = _single_vectors(param_sets)
+            if vectors is not None:
+                Q = _stack_vectors(vectors)
+        _note_params_path(Q is not None)
+        return Q if Q is not None else self._query_matrix_loop(param_sets)
+
+    def _query_matrix_loop(self, param_sets) -> Optional[np.ndarray]:
+        """``_as_query_matrix`` one set at a time, for any batch."""
         if self.param_count != 1:
             # same vector repeated across placeholders: accept tuples of
             # equal vectors, normalize to the single-vector form
@@ -1432,8 +1552,6 @@ class PreparedStatement:
             if not rows or any(r.shape != rows[0].shape for r in rows):
                 return None
             return np.stack(rows)
-        if isinstance(param_sets, np.ndarray) and param_sets.ndim == 2:
-            return np.asarray(param_sets, np.float32)
         rows = []
         for ps in param_sets:
             if isinstance(ps, (list, tuple)) and len(ps) == 1 \

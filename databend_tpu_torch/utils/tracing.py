@@ -97,6 +97,11 @@ def reset_query_id(token) -> None:
     _QUERY_ID.reset(token)
 
 
+def current_span() -> Optional[Span]:
+    """The innermost open span of this context, or None."""
+    return _CURRENT.get()
+
+
 @contextlib.contextmanager
 def span(name: str, **attrs):
     """Nested timing span; records on exit (even on error, with the

@@ -20,7 +20,9 @@ and prints the port's set-up spans: ``fuse_append`` and its steps (what
 ``ingest_s`` times from outside), ``knn_load_corpus`` and its steps (inside
 ``load_s``), each ``kernel_build`` and the ``kernel_builds`` /
 ``kernel_build_seconds`` counters, then the split of a window's batch by
-``knn_batch``'s children.
+``knn_batch``'s children and the way each window batch's parameter sets
+were taken in (the ``knn_params`` span's ``bulk``; the process's
+``knn_params_bulk`` / ``knn_params_loop`` counters).
 
 ``cost`` builds the cell as the harness does and times the same batches
 (the feed made beforehand) in one process with the port's serving spans
@@ -143,11 +145,14 @@ def setup(workload: str, seed: int, seconds: float, device=None,
     batches = [s for s in spans if s.name == "knn_batch"]
     window = {id(s) for s in batches[-run["batches"]:]}
     split = {n: 0.0 for n in ("knn_batch",) + KNN_CHILDREN}
+    ways = {"bulk": 0, "loop": 0}
     for s in spans:
         if id(s) in window:
             split["knn_batch"] += s.end - s.start
         elif id(s.parent) in window and s.name in split:
             split[s.name] += s.end - s.start
+            if "bulk" in s.attrs:
+                ways["bulk" if s.attrs["bulk"] else "loop"] += 1
     return [
         {"workload": workload, "seed": seed, "correct": run["correct"],
          "benchmark_spans_s": run["spans"]},
@@ -159,7 +164,10 @@ def setup(workload: str, seed: int, seconds: float, device=None,
          "kernel_build_seconds": counters.get("kernel_build_seconds", 0)},
         {"window_batches": len(window),
          "ms_a_batch": {k: v * 1e3 / max(len(window), 1)
-                        for k, v in split.items()}},
+                        for k, v in split.items()},
+         "knn_params_in_window": ways,
+         "knn_params_counters": {w: counters.get(f"knn_params_{w}", 0)
+                                 for w in ("bulk", "loop")}},
     ]
 
 

@@ -123,6 +123,10 @@ def test_each_served_call_is_one_knn_batch(table, kind):
     assert root.attrs == {"exact": True, "queries": b}
     launch = next(s for s in spans if s.name == "knn_launch")
     assert launch.attrs == {"chunks": -(-b // 256)}
+    # a batch's parameter sets take the bulk path; one execute's, neither
+    params = next(s for s in spans if s.name == "knn_params")
+    bulk = kind != "execute"
+    assert params.attrs == ({"bulk": True} if bulk else {})
     assert re.fullmatch(r"q\d+_\d+", root.query_id)
     assert {s.query_id for s in spans} == {root.query_id}
     for s in spans:
@@ -132,6 +136,10 @@ def test_each_served_call_is_one_knn_batch(table, kind):
     after = METRICS.snapshot()
     assert after["knn_batches"] - before.get("knn_batches", 0) == 1
     assert after["knn_queries"] - before.get("knn_queries", 0) == b
+    assert after.get("knn_params_bulk", 0) \
+        - before.get("knn_params_bulk", 0) == bulk
+    assert after.get("knn_params_loop", 0) \
+        == before.get("knn_params_loop", 0)
 
 
 def test_calls_get_their_own_ids_and_the_first_loads_the_corpus(table):
@@ -345,6 +353,7 @@ def test_operators_read_them_in_the_system_tables(table):
     assert len({q for _, _, q in got}) == 1
     counted = dict(ctx.sql("SELECT metric, value FROM system.metrics").rows())
     assert counted["knn_batches"] >= 1 and counted["knn_queries"] >= 300
+    assert counted["knn_params_bulk"] >= 1
     # no dotted path: the per-operator profile stays the statements'
     ops = ctx.sql("SELECT operator FROM system.query_execution").rows()
     assert not any(op.startswith(("knn", "fuse")) for (op,) in ops)
