@@ -7,7 +7,8 @@ query, only the minimum of every lane-aligned group of rows (row
 ``L/tile`` of the full score matrix. ``flash_topk`` then picks the best
 ``shortlist`` groups, expands them to their ``tile/L`` member rows and
 re-scores those exactly in f32. A true top-k row is lost only if its group
-has ``shortlist`` better groups.
+has ``shortlist`` better groups. ``flash_topk`` is ``flash_scan`` then
+``flash_rerank``, so a caller can trace or time the two apart.
 
 On a CUDA tensor ``flash_group_minima`` launches the hand-written Hopper
 kernel ``csrc/flash_group_minima.cu`` (a TMA ring feeding ``wgmma``, work
@@ -150,30 +151,34 @@ def pad_for_flash(x: torch.Tensor, norms: torch.Tensor, tile: int = 4096):
     return xp, np_, n
 
 
-def flash_topk(q: torch.Tensor, x_bf16: torch.Tensor, norms: torch.Tensor,
-               x_f32: torch.Tensor, k: int, metric: str = "l2",
-               tile: int = 16384, buckets: int = 128, shortlist: int = 0,
-               n_valid: Optional[int] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused scan + exact re-rank -> (f32 distances ``[B, k]`` ascending,
-    row ids ``[B, k]``): squared l2, or ``-dot`` for ip.
+def flash_scan(q: torch.Tensor, x_bf16: torch.Tensor, norms: torch.Tensor,
+               metric: str = "l2", tile: int = 16384,
+               buckets: int = 128) -> torch.Tensor:
+    """The scan of :func:`flash_topk`: ``q`` as f32, widened with zero
+    columns to ``x_bf16``'s width, and its ``[ntiles, B, L]`` group minima
+    (:func:`flash_group_minima`)."""
+    qk = q.float()
+    if x_bf16.shape[1] > q.shape[1]:
+        qk = torch.nn.functional.pad(qk, (0, x_bf16.shape[1] - q.shape[1]))
+    return flash_group_minima(qk.contiguous(), x_bf16, norms, metric, tile,
+                              buckets)
 
-    ``shortlist``: number of winning groups re-ranked exactly (default 2k).
-    ``n_valid``: rows at or past it are padding and are masked out of the
-    re-rank; ``x_f32`` must hold at least the ``n_valid`` real rows.
-    ``x_bf16`` may carry zero columns past ``q``'s width (the CUDA kernel
-    needs ``D % 16 == 0``); they change no dot product."""
+
+def flash_rerank(minima: torch.Tensor, q: torch.Tensor, x_f32: torch.Tensor,
+                 k: int, metric: str = "l2", tile: int = 16384,
+                 buckets: int = 128, shortlist: int = 0,
+                 n_valid: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The re-rank of :func:`flash_topk`: the ``shortlist`` smallest groups
+    of ``minima`` (equal minima by lowest group), each expanded to its
+    ``tile/L`` member rows in member order, re-scored exactly in f32 from
+    ``x_f32``; the ``k`` smallest, equal scores by shortlist position."""
     if shortlist <= 0:
         shortlist = 2 * k
-    b, d = q.shape
-    n = x_bf16.shape[0]
+    b = q.shape[0]
+    n = minima.shape[0] * tile
     group = tile // buckets
     q32 = q.float()
-    qk = q32
-    if x_bf16.shape[1] > d:
-        qk = torch.nn.functional.pad(q32, (0, x_bf16.shape[1] - d))
-    minima = flash_group_minima(qk.contiguous(), x_bf16, norms, metric, tile,
-                                buckets)                         # [T, B, L]
     flat = minima.permute(1, 0, 2).reshape(b, -1)                # [B, T*L]
     _, win = topk_smallest_lowest_index(flat, shortlist)        # [B, S]
     # group (tile_idx, lane) -> its tile/L member rows
@@ -182,9 +187,11 @@ def flash_topk(q: torch.Tensor, x_bf16: torch.Tensor, norms: torch.Tensor,
     member = torch.arange(group, device=q.device)
     cand = (tile_idx[:, :, None] * tile + member[None, None, :] * buckets
             + lane[:, :, None]).reshape(b, shortlist * group)
-    cand = torch.clamp_max(cand, min(n, x_f32.shape[0]) - 1)
+    # pad rows past x_f32 read its last row; the mask below is of the
+    # unclamped rows, so those copies never score
+    rows = torch.clamp_max(cand, min(n, x_f32.shape[0]) - 1)
 
-    cand_vecs = x_f32[cand]                                      # [B, S*G, D]
+    cand_vecs = x_f32[rows]                                      # [B, S*G, D]
     if metric == "l2":
         # in place: the [B, S*G, D] gather is the largest buffer of the call
         exact = cand_vecs.sub_(q32[:, None, :]).square_().sum(-1)
@@ -193,4 +200,23 @@ def flash_topk(q: torch.Tensor, x_bf16: torch.Tensor, norms: torch.Tensor,
     if n_valid is not None:
         exact = exact.masked_fill(cand >= n_valid, float("inf"))
     vals, pos = topk_smallest_lowest_index(exact, k)
-    return vals, torch.gather(cand, 1, pos)
+    return vals, torch.gather(rows, 1, pos)
+
+
+def flash_topk(q: torch.Tensor, x_bf16: torch.Tensor, norms: torch.Tensor,
+               x_f32: torch.Tensor, k: int, metric: str = "l2",
+               tile: int = 16384, buckets: int = 128, shortlist: int = 0,
+               n_valid: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused scan + exact re-rank -> (f32 distances ``[B, k]`` ascending,
+    row ids ``[B, k]``): squared l2, or ``-dot`` for ip;
+    :func:`flash_scan`, then :func:`flash_rerank`.
+
+    ``shortlist``: number of winning groups re-ranked exactly (default 2k).
+    ``n_valid``: rows at or past it are padding and are masked out of the
+    re-rank; ``x_f32`` must hold at least the ``n_valid`` real rows.
+    ``x_bf16`` may carry zero columns past ``q``'s width (the CUDA kernel
+    needs ``D % 16 == 0``); they change no dot product."""
+    minima = flash_scan(q, x_bf16, norms, metric, tile, buckets)
+    return flash_rerank(minima, q, x_f32, k, metric, tile, buckets,
+                        shortlist, n_valid)

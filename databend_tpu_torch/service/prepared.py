@@ -44,7 +44,13 @@ under ``EXECUTE``. Its children name the host's steps: ``knn_refresh``
 (with ``knn_load_corpus`` when the snapshot changed), ``knn_params``,
 ``knn_upload``, ``knn_launch`` (the enqueue of every chunk),
 ``knn_fetch`` (the wait on the card and the copy back), ``knn_take`` and
-``knn_block``.
+``knn_block``. A batch on the flash route opens, under ``knn_launch``,
+``knn_flash_scan`` (the chunk's group-min scan) and ``knn_rerank`` (its
+shortlist, expansion, gather, f32 distances and selection) a query
+chunk, and ``knn_flash_state`` where its call builds the snapshot's bf16
+corpus. The counter ``knn_flash_batches`` counts the batches the flash
+route serves; ``knn_approx_exact`` the approximate ones the exact program
+serves (one chunk, a filter, a metric other than l2 and cosine).
 
 ``knn_params`` turns a batch's parameter sets into the checked ``[B, d]``
 f32 query matrix. A regular batch (sets of one container type and
@@ -610,34 +616,43 @@ class _KnnServer:
 
         def load():
             from ..ops.flash_topk import pad_for_flash
-            xb = x.to(torch.bfloat16)
-            if x.shape[1] % 16:
-                xb = torch.nn.functional.pad(xb, (0, 16 - x.shape[1] % 16))
-            norms = x.new_zeros(x.shape[0]) if normalized \
-                else torch.sum(x * x, -1)
-            xb, norms, _ = pad_for_flash(xb, norms, FLASH_TILE)
-            return xb.contiguous(), norms.contiguous()
+            with span("knn_flash_state"):
+                xb = x.to(torch.bfloat16)
+                if x.shape[1] % 16:
+                    xb = torch.nn.functional.pad(
+                        xb, (0, 16 - x.shape[1] % 16))
+                norms = x.new_zeros(x.shape[0]) if normalized \
+                    else torch.sum(x * x, -1)
+                xb, norms, _ = pad_for_flash(xb, norms, FLASH_TILE)
+                return xb.contiguous(), norms.contiguous()
 
         cm = CacheManager.instance().vector_columns
         return cm.get_or_load(("flash",) + self._corpus_key, load)
 
     def _flash_select(self, Q: torch.Tensor, metric: str, k: int):
-        """Approximate top-k through flash_topk, per query chunk: l2 returns
-        the square root of the exact squared distance, cosine ``1 - dot``."""
+        """Approximate top-k by the flash route (``ops/flash_topk.py``), per
+        query chunk: its scan (span ``knn_flash_scan``), then the re-rank of
+        its ``2k`` best groups (``knn_rerank``). l2 returns the square root of the exact
+        squared distance, cosine ``1 - dot``."""
         from ..ops.distance import normalize
-        from ..ops.flash_topk import flash_topk
+        from ..ops.flash_topk import flash_rerank, flash_scan
         xb, norms = self._flash_state()
+        kind = "l2" if metric == "l2" else "ip"
+        shortlist = 2 * k
         vals, ids = [], []
-        for qb in torch.split(Q, _QUERY_CHUNK):
-            if metric == "cosine":
-                qb = normalize(qb)
-            v, i = flash_topk(qb, xb, norms, self._x, k,
-                              "l2" if metric == "l2" else "ip",
-                              tile=FLASH_TILE, buckets=FLASH_LANES,
-                              n_valid=self._n)
-            vals.append(torch.sqrt(torch.clamp_min(v, 0.0)) if metric == "l2"
-                        else 1.0 + v)
-            ids.append(i)
+        for c, qb in enumerate(torch.split(Q, _QUERY_CHUNK)):
+            with span("knn_flash_scan", chunk=c):
+                if metric == "cosine":
+                    qb = normalize(qb)
+                minima = flash_scan(qb, xb, norms, kind, tile=FLASH_TILE,
+                                    buckets=FLASH_LANES)
+            with span("knn_rerank", chunk=c, shortlist=shortlist):
+                v, i = flash_rerank(minima, qb, self._x, k, kind,
+                                    tile=FLASH_TILE, buckets=FLASH_LANES,
+                                    shortlist=shortlist, n_valid=self._n)
+                vals.append(torch.sqrt(torch.clamp_min(v, 0.0))
+                            if metric == "l2" else 1.0 + v)
+                ids.append(i)
         return torch.cat(vals), torch.cat(ids).to(torch.int32)
 
     def _topk(self, Q: np.ndarray, exact: bool = True,
@@ -649,13 +664,17 @@ class _KnnServer:
         chunk runs the exact program, as the reference does."""
         metric = _DISTANCE_FNS[self.shape.metric_fn]
         k = min(self.shape.k, self._n)
+        flash = not exact and self._static_mask is None \
+            and Q.shape[0] > _QUERY_CHUNK and self._n \
+            and metric in ("l2", "cosine")
+        if not exact:
+            METRICS.inc("knn_flash_batches" if flash else "knn_approx_exact")
         if self._static_mask is not None:
             return self._topk_filtered(Q, exact, fvals or [], metric, k)
         with span("knn_upload"):
             Qd = backend.to_device(Q)
         with span("knn_launch", chunks=_chunks(Q)):
-            if not exact and Q.shape[0] > _QUERY_CHUNK and self._n \
-                    and metric in ("l2", "cosine"):
+            if flash:
                 vals, ids = self._flash_select(Qd, metric, k)
             else:
                 vals, ids = _scan_topk_program(Qd, self._x, k, metric,

@@ -20,8 +20,11 @@ and prints the port's set-up spans: ``fuse_append`` and its steps (what
 ``ingest_s`` times from outside), ``knn_load_corpus`` and its steps (inside
 ``load_s``), each ``kernel_build`` and the ``kernel_builds`` /
 ``kernel_build_seconds`` counters, then the split of a window's batch by
-``knn_batch``'s children and the way each window batch's parameter sets
-were taken in (the ``knn_params`` span's ``bulk``; the process's
+``knn_batch``'s children (and, on the flash route, ``knn_launch``'s
+``knn_flash_scan`` and ``knn_rerank``, with ``knn_flash_state``, the bf16
+corpus built at the first approximate batch, and the ``knn_flash_batches``
+/ ``knn_approx_exact`` counters) and the way each window batch's parameter
+sets were taken in (the ``knn_params`` span's ``bulk``; the process's
 ``knn_params_bulk`` / ``knn_params_loop`` counters).
 
 ``cost`` builds the cell as the harness does and times the same batches
@@ -44,6 +47,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KNN_CHILDREN = ("knn_refresh", "knn_params", "knn_upload", "knn_launch",
                 "knn_fetch", "knn_take", "knn_block")
+FLASH_CHILDREN = ("knn_flash_scan", "knn_rerank")     # under knn_launch
 
 
 def read_record(path: str) -> dict:
@@ -153,11 +157,15 @@ def setup(workload: str, seed: int, seconds: float, device=None,
             split[s.name] += s.end - s.start
             if "bulk" in s.attrs:
                 ways["bulk" if s.attrs["bulk"] else "loop"] += 1
+        elif s.name in FLASH_CHILDREN and s.parent is not None \
+                and id(s.parent.parent) in window:
+            split[s.name] = split.get(s.name, 0.0) + s.end - s.start
     return [
         {"workload": workload, "seed": seed, "correct": run["correct"],
          "benchmark_spans_s": run["spans"]},
         {"fuse_append_s": _tree(spans, "fuse_append")},
-        {"knn_load_corpus_s": _tree(spans, "knn_load_corpus")},
+        {"knn_load_corpus_s": _tree(spans, "knn_load_corpus"),
+         "knn_flash_state_s": _tree(spans, "knn_flash_state")},
         {"kernel_build": [[s.attrs.get("kernel"), s.attrs.get("seconds")]
                           for s in spans if s.name == "kernel_build"],
          "kernel_builds": counters.get("kernel_builds", 0),
@@ -167,7 +175,9 @@ def setup(workload: str, seed: int, seconds: float, device=None,
                         for k, v in split.items()},
          "knn_params_in_window": ways,
          "knn_params_counters": {w: counters.get(f"knn_params_{w}", 0)
-                                 for w in ("bulk", "loop")}},
+                                 for w in ("bulk", "loop")},
+         "route_counters": {c: counters.get(c, 0) for c in
+                            ("knn_flash_batches", "knn_approx_exact")}},
     ]
 
 

@@ -128,6 +128,34 @@ def test_flash_topk_matches_jax(metric):
     assert hits / wi.size >= 0.99
 
 
+@pytest.mark.parametrize("n", [780, 1000])
+def test_flash_topk_serving_form_matches_jax_exactly(n):
+    """The form the server calls: whole-number rows up to 255 (every bf16
+    operand, product and f32 sum exact, so both sides pick the same groups
+    and scores), an f32 corpus of the real rows alone, and queries at the
+    last real row, whose group and neighbours hold padding rows (at n = 780
+    every group of the last tile does). Ids and distances equal."""
+    rng = np.random.default_rng(n)
+    x = rng.integers(0, 256, size=(n, 32)).astype(np.float32)
+    q = x[rng.integers(0, n, size=8)]
+    q[:2] = x[n - 1]
+    q[1:] += rng.integers(-3, 4, size=q[1:].shape)
+    q = np.clip(q, 0, 255)
+    norms = (x.astype(np.float64) ** 2).sum(-1).astype(np.float32)
+    xp, npad, n_valid = jf.pad_for_flash(x, norms, 256)
+    assert n_valid == n and xp.shape[0] == 1024
+    wv, wi = jf.flash_topk(q, jnp.asarray(xp, jnp.bfloat16), npad, x, 10,
+                           "l2", tile=256, buckets=128,
+                           n_valid=jnp.int32(n_valid), interpret=True)
+    gv, gi = tf.flash_topk(torch.from_numpy(q), _bf16(xp),
+                           torch.from_numpy(npad), torch.from_numpy(x), 10,
+                           "l2", tile=256, buckets=128, n_valid=n_valid)
+    assert gi[0, 0] == n - 1 and gv[0, 0] == 0
+    assert all(len(set(row)) == 10 for row in gi.tolist())
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
 def test_flash_topk_zero_padded_columns():
     """x_bf16 may carry zero columns past q's width (the kernel needs
     D % 16 == 0): the answer is unchanged."""
