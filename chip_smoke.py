@@ -25,6 +25,17 @@ Phases (any failure exits non-zero and prints no result line):
      wide embeddings (D in {400, 768, 1536}), and on a 262,144-row corpus
      with tile = 4096, tile = 128 (one step per tile; 300 more launches must
      repeat the first bit for bit) and D = 48;
+     flash_rerank ([rerank]: its bound one read of the group minima and of
+     every shortlisted row, one write of the [B, k] answer at 3.35 TB/s;
+     shortlist 2k, queries at rows of the corpus moved by whole numbers):
+     the serving chunk (B = 256 against 1M x 128 whole-number rows, k = 10,
+     n_valid inside the last tile, the last real row served once; 50 more
+     launches must repeat the first bits) under l2 and ip, ids equal and
+     values bit-equal; float rows under l2 and ip (values within
+     RERANK_ULPS f32 ulps of the sum of their terms' magnitudes, ids equal
+     but between distances that near); rows of 16 values in {0, 1} (ties by
+     the thousand in the minima and in the re-rank), D = 960, D = 130
+     (scalar loads), a corpus of one tile and k = 100, bit-equal;
      impact_bm25_scores (bit-equal to its plain version, and rtol
      IMPACT_RTOL on finite scores with the same -inf pattern; its bound
      reads sat only at the slots some query term asks for, and counts one
@@ -103,7 +114,8 @@ Phases (any failure exits non-zero and prints no result line):
      program) and a cosine batch; recall@10 against a numpy ground truth on
      16 queries, launch counts of every kernel (exact_topk_select once a
      256-query chunk of an exact batch, the approximate B = 1,024 batches
-     none);
+     none; flash_rerank once a chunk of an approximate batch, the exact
+     ones none);
      then [sq8] on the same corpus: ``ops.quantization.encode`` (quantile
      0.99), ``approx_dot`` on [16, N] against the formula over integer
      products in numpy (within 4 f32 ulp of its terms), ``topk_l2`` at
@@ -275,6 +287,8 @@ N_GT = 16              # queries with a numpy ground truth
 SEED = 7
 REPS = 5               # timed batches per serving mode (after one warm-up)
 FLASH_TOL = 1e-3       # kernel vs plain: atol FLASH_TOL * max|score| (f32 sums in another order)
+RERANK_ULPS = 4        # flash_rerank vs plain on float rows: f32 ulps of the
+                       # sum of the terms' magnitudes (sums in another order)
 CLUSTER_ROWS = 262_144  # the reference's k-means batch (index/kmeans.py)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12    # dense bf16 tensor-core peak, same source
@@ -470,7 +484,7 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
     from databend_tpu_torch.ops import _cuda
     names = ("flash_group_minima", "impact_bm25_scores", "grouped_sums",
-             "exact_topk_select")
+             "exact_topk_select", "flash_rerank")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(_cuda.build, names)))
@@ -536,6 +550,164 @@ def phase_kernels(card):
         results[(metric, b, d, tile)] = hold_flash_kernel(
             card, metric, q, xb, nb, tile, repeats=300 if tile == 128 else 0)
         del x, norms, xb, nb, q
+    torch.cuda.empty_cache()
+    return results
+
+
+def f32_ulp(t):
+    return torch.nextafter(t, torch.full_like(t, float("inf"))) - t
+
+
+def hold_flash_rerank(card, what, minima, q, x, k, metric, n_valid=None,
+                      exact=True, repeats=0, tile=16384):
+    """One flash_rerank launch (shortlist 2k) against _flash_rerank_plain on
+    the same tensors. ``exact`` (whole-number rows: every product and sum
+    exact in f32): ids equal and values bit-equal. Otherwise values within
+    RERANK_ULPS f32 ulps of the sum of their terms' magnitudes (the value
+    itself under l2, sum |x q| under ip: the sums run in another order),
+    and ids equal wherever the plain distance lies farther than that from
+    its neighbours'. ``repeats`` more launches must give the same bits.
+    Then both timed beside the bound. Returns (ulps, ms, plain_ms, bound_ms,
+    bound_by)."""
+    from databend_tpu_torch.ops.flash_topk import (_flash_rerank_plain,
+                                                   flash_rerank)
+    b, d = q.shape
+    s = 2 * k
+    what = f"{what}: {metric} B={b} rows={x.shape[0]} D={d} k={k}"
+    before = flash_rerank.launches
+    gv, gi = flash_rerank(minima, q, x, k, metric, tile=tile, shortlist=s,
+                          n_valid=n_valid)
+    torch.cuda.synchronize()
+    check(flash_rerank.launches == before + 1,
+          f"{what}: flash_rerank did not launch its kernel once")
+    # the plain top k + 1: its first k are its top k, the last a neighbour
+    wv, wi = _flash_rerank_plain(minima, q, x, k + 1, metric, tile=tile,
+                                 shortlist=s, n_valid=n_valid)
+    nxt, wv, wi = wv[:, 1:], wv[:, :k].contiguous(), wi[:, :k].contiguous()
+    if exact:
+        check(torch.equal(gi, wi) and same_bits(gv, wv),
+              f"{what}: kernel differs from the plain version")
+        ulps = 0.0
+    else:
+        rows = x[torch.clamp_max(wi, x.shape[0] - 1)]
+        mag = wv.abs() if metric == "l2" \
+            else (rows * q[:, None, :]).abs().sum(-1)
+        tol = RERANK_ULPS * f32_ulp(mag)
+        off = (gv - wv).abs()
+        ulps = (off / f32_ulp(mag)).max().item()
+        check(bool((off <= tol).all()),
+              f"{what}: values {ulps:.2f} ulps from the plain version's")
+        prev = torch.cat([wv[:, :1] - 2 * tol[:, :1] - 1, wv[:, :-1]], 1)
+        near = ((wv - prev).abs() <= tol) | ((nxt - wv).abs() <= tol)
+        check(not bool(((gi != wi) & ~near).any()),
+              f"{what}: an id differs where the plain distances do not tie")
+    for i in range(repeats):
+        av, ai = flash_rerank(minima, q, x, k, metric, tile=tile, shortlist=s,
+                              n_valid=n_valid)
+        check(torch.equal(ai, gi) and same_bits(av, gv),
+              f"{what}: launch {i + 2} differs from the first")
+    del gv, gi, wv, wi
+    ms = cuda_ms(lambda: flash_rerank(minima, q, x, k, metric, tile=tile,
+                                      shortlist=s, n_valid=n_valid))
+    plain_ms = cuda_ms(lambda: _flash_rerank_plain(
+        minima, q, x, k, metric, tile=tile, shortlist=s, n_valid=n_valid))
+    from portbench.approx_bounds import rerank_bound
+    bound_s, bound_by = rerank_bound(b, minima.shape[0] * tile, d, tile,
+                                     minima.shape[2], s, k)
+    bound_ms = bound_s * 1e3
+    how = "bit-equal" if exact else f"{ulps:.2f} ulps"
+    print(f"[rerank] flash_rerank {what}: {how}, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.0f}% reached) "
+          f"[{card}]")
+    return ulps, ms, plain_ms, bound_ms, bound_by
+
+
+def rerank_case(g, x, b, metric, top=None, near=None, tile=16384):
+    """(minima, q) of the flash route on the corpus ``x`` (its real rows,
+    f32 on the card): the bf16 copy padded to whole tiles and D % 16 == 0
+    as the server pads it, B queries at rows of ``x`` (``near``, else drawn)
+    moved by whole numbers in [-3, 3] clamped to [0, ``top``], or by
+    0.1 * N(0, 1) where ``top`` is None, and the kernel's group minima."""
+    from databend_tpu_torch.ops.flash_topk import flash_scan, pad_for_flash
+    n, d = x.shape
+    xb = x.to(torch.bfloat16)
+    if d % 16:
+        xb = torch.nn.functional.pad(xb, (0, 16 - d % 16))
+    norms = (x * x).sum(1) if metric == "l2" \
+        else torch.zeros(n, device="cuda")
+    xb, nb, _ = pad_for_flash(xb, norms, tile)
+    if near is None:
+        near = torch.randint(0, n, (b,), generator=g, device="cuda")
+    if top is None:
+        q = x[near] + 0.1 * torch.randn(b, d, generator=g, device="cuda")
+    else:
+        q = (x[near] + torch.randint(-3, 4, (b, d), generator=g,
+                                     device="cuda")).clamp_(0, top)
+    q = q.contiguous()
+    return flash_scan(q, xb.contiguous(), nb.contiguous(), metric,
+                      tile=tile), q
+
+
+def whole_rows(g, n, d, top):
+    return torch.randint(0, top + 1, (n, d), generator=g, device="cuda",
+                         dtype=torch.int32).float()
+
+
+def phase_rerank_kernel(card):
+    """flash_rerank against its plain version at the serving chunk and at
+    the shapes it must take (see the module doc, phase 3)."""
+    from databend_tpu_torch.ops.flash_topk import flash_rerank
+    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    results = {}
+    # the serving chunk: B = 256 against 1M x 128 whole-number rows, k = 10,
+    # n_valid inside the last tile; query 0 at the last real row, which
+    # must be served once
+    x = whole_rows(g, N_ROWS, DIM, 255)
+    for metric in ("l2", "ip"):
+        near = torch.randint(0, N_ROWS, (256,), generator=g, device="cuda")
+        near[0] = N_ROWS - 1
+        minima, q = rerank_case(g, x, 256, metric, top=255, near=near)
+        results[(metric, 256, DIM)] = hold_flash_rerank(
+            card, "serving chunk", minima, q, x, K, metric, n_valid=N_ROWS,
+            repeats=50 if metric == "l2" else 0)
+        if metric == "l2":
+            _, ids = flash_rerank(minima, q, x, K, metric, shortlist=2 * K,
+                                  n_valid=N_ROWS)
+            ids = ids.cpu()
+            check(int(ids[0, 0]) == N_ROWS - 1 and all(
+                len(set(r)) == K for r in ids.tolist()),
+                "the last real row is not served once")
+    del x
+    # float rows, l2 and ip
+    x = torch.randn(N_ROWS, DIM, generator=g, device="cuda")
+    for metric in ("l2", "ip"):
+        minima, q = rerank_case(g, x, 256, metric)
+        results[(metric, 256, DIM, "float")] = hold_flash_rerank(
+            card, "float rows", minima, q, x, K, metric, n_valid=N_ROWS,
+            exact=False)
+    del x, minima, q
+    torch.cuda.empty_cache()
+    # ties: rows of 16 values in {0, 1} tie by the thousand, in the group
+    # minima (the shortlist by lowest group) and in the re-rank (by
+    # shortlist position)
+    x = whole_rows(g, CLUSTER_ROWS, 16, 1)
+    for metric in ("l2", "ip"):
+        minima, q = rerank_case(g, x, 256, metric, top=1)
+        results[(metric, 256, 16, "ties")] = hold_flash_rerank(
+            card, "tied rows", minima, q, x, K, metric, n_valid=CLUSTER_ROWS)
+    # wide rows (D = 960: values in [0, 15] keep every f32 sum exact), a D
+    # that is not a multiple of 4 (scalar loads), a corpus of one tile and
+    # a larger k
+    for what, n, d, top, k in (("D 960", CLUSTER_ROWS, 960, 15, K),
+                               ("D 130", CLUSTER_ROWS, 130, 255, K),
+                               ("one tile", 10_000, DIM, 255, K),
+                               ("k 100", CLUSTER_ROWS, DIM, 255, 100)):
+        x = whole_rows(g, n, d, top)
+        minima, q = rerank_case(g, x, 256, "l2", top=top)
+        results[(what,)] = hold_flash_rerank(card, what, minima, q, x, k,
+                                             "l2", n_valid=n)
+        del x, minima, q
     torch.cuda.empty_cache()
     return results
 
@@ -1435,12 +1607,17 @@ def phase_main_path(card, profile):
                   f"{time.perf_counter() - t0:.1f} s")
 
             ft.flash_group_minima.launches = 0
+            ft.flash_rerank.launches = 0
             ex.exact_topk_select.launches = 0
             run_queries(ctx, queries, gt, card, ft, ex)
             launches = ft.flash_group_minima.launches
+            rerank_launches = ft.flash_rerank.launches
             exact_launches = ex.exact_topk_select.launches
             print(f"[main] launches over the main path: flash_group_minima "
-                  f"{launches}, exact_topk_select {exact_launches} [{card}]")
+                  f"{launches}, flash_rerank {rerank_launches}, "
+                  f"exact_topk_select {exact_launches} [{card}]")
+            check(rerank_launches == launches,
+                  "the main path's flash chunks and re-rank launches differ")
             if profile:
                 profile_modes(ctx, queries, card)
             return launches, exact_launches, x, queries, gt
@@ -1501,6 +1678,7 @@ def run_queries(ctx, queries, gt, card, ft, ex):
         bp = ctx.prepare(sql.format(fn=f"{metric}_distance"))
         bp.execute_batch_block(sets, exact=exact)              # warm
         before = ft.flash_group_minima.launches
+        before_rr = ft.flash_rerank.launches
         before_ex = ex.exact_topk_select.launches
         times = []
         for _ in range(REPS):
@@ -1509,6 +1687,7 @@ def run_queries(ctx, queries, gt, card, ft, ex):
             times.append(time.perf_counter() - t0)
         dt_b = float(np.median(times))
         grew = ft.flash_group_minima.launches - before
+        grew_rr = ft.flash_rerank.launches - before_rr
         grew_ex = ex.exact_topk_select.launches - before_ex
         ids, d = _ids_scores(res, len(sets))
         check(np.isfinite(d).all(), f"{metric} exact={exact}: non-finite scores")
@@ -1521,6 +1700,7 @@ def run_queries(ctx, queries, gt, card, ft, ex):
               f"{len(sets) / dt_b:.1f} QPS (median of {REPS} batches, "
               f"{[round(t * 1e3, 3) for t in times]} ms), recall@10 {r}, "
               f"max |score - f64| {err}, flash launches {grew}, "
+              f"flash_rerank launches {grew_rr}, "
               f"exact_topk_select launches {grew_ex} [{card}]")
         check(r >= need, f"{metric} exact={exact}: recall {r} < {need}")
         check(err <= 1e-3 * max(1.0, float(np.abs(true).max())),
@@ -1529,6 +1709,10 @@ def run_queries(ctx, queries, gt, card, ft, ex):
         check(grew_ex == (REPS * chunks if exact else 0),
               f"{metric} exact={exact}: {grew_ex} exact_topk_select "
               f"launches over {REPS} batches of {chunks} query chunks")
+        check(grew_rr == (0 if exact else REPS * chunks),
+              f"{metric} exact={exact}: {grew_rr} flash_rerank launches "
+              f"over {REPS} batches of {chunks} query chunks, want one a "
+              "chunk of an approximate batch")
         if exact:
             check(grew == 0, "the exact mode launched the flash kernel")
         else:
@@ -4549,6 +4733,7 @@ def main():
         return 0
     build_kernels()
     kern = phase_kernels(card)
+    rerank = phase_rerank_kernel(card)
     imp, topk = phase_impact_kernels(card)
     gsk = phase_grouped_sums_kernel(card)
     exk = phase_exact_kernel(card)
@@ -4626,6 +4811,17 @@ def main():
         "max_abs_err": max(v[0] for v in gsk.values()), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms})
+    # the serving chunk: B = 256 against 1M whole-number rows, l2, k = 10;
+    # no single PyTorch call computes the re-rank: the plain version is the
+    # library composition it replaces
+    _, ms, plain_ms, bound_ms, bound_by = rerank[("l2", 256, DIM)]
+    kernels.append({
+        "name": "flash_rerank", "route": "cuda",
+        "source": "databend_tpu_torch/csrc/flash_rerank.cu",
+        "replaces": None,
+        "launches": launches, "max_abs_err": max(v[0] for v in rerank.values()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None})
     # the serving chunk: b = 256 against 1M rows, l2, k = 10; the library
     # yardstick is torch.topk over the finished distances (no tie rule)
     _, ms, plain_ms, bound_ms, bound_by, topk_ms = exk[("l2", 256, K)]

@@ -14,7 +14,10 @@ On a CUDA tensor ``flash_group_minima`` launches the hand-written Hopper
 kernel ``csrc/flash_group_minima.cu`` (a TMA ring feeding ``wgmma``, work
 items of 128 queries on a persistent grid) or raises; on a CPU tensor it
 runs the plain PyTorch version ``_flash_group_minima_plain``, which has the
-same contract and group membership.
+same contract and group membership. ``flash_rerank`` likewise launches
+``csrc/flash_rerank.cu`` (the shortlist, the member rows' f32 distances and
+the tie-rule top-k, a block a query, in one launch) or raises, and runs
+``_flash_rerank_plain`` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -164,15 +167,45 @@ def flash_scan(q: torch.Tensor, x_bf16: torch.Tensor, norms: torch.Tensor,
                               buckets)
 
 
-def flash_rerank(minima: torch.Tensor, q: torch.Tensor, x_f32: torch.Tensor,
-                 k: int, metric: str = "l2", tile: int = 16384,
-                 buckets: int = 128, shortlist: int = 0,
-                 n_valid: Optional[int] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The re-rank of :func:`flash_topk`: the ``shortlist`` smallest groups
-    of ``minima`` (equal minima by lowest group), each expanded to its
-    ``tile/L`` member rows in member order, re-scored exactly in f32 from
-    ``x_f32``; the ``k`` smallest, equal scores by shortlist position."""
+def _check_rerank(minima, q, x_f32, k, metric, tile, buckets, shortlist,
+                  n_valid):
+    if metric not in _METRIC_SCALE:
+        raise ValueError(f"flash_rerank: metric {metric!r} not in "
+                         f"{tuple(_METRIC_SCALE)}")
+    if minima.ndim != 3 or q.ndim != 2 or x_f32.ndim != 2:
+        raise ValueError("flash_rerank: want minima [T, B, L], q [B, D], "
+                         "x_f32 [rows, D]")
+    if any(t.dtype != torch.float32 for t in (minima, q, x_f32)):
+        raise TypeError("flash_rerank: want minima, q and x_f32 float32; got "
+                        f"{minima.dtype}, {q.dtype}, {x_f32.dtype}")
+    if not all(t.is_contiguous() for t in (minima, q, x_f32)):
+        raise ValueError("flash_rerank: minima, q and x_f32 must be "
+                         "contiguous")
+    tiles, b, lanes = minima.shape
+    if lanes != buckets or b != q.shape[0] or q.shape[1] != x_f32.shape[1] \
+            or x_f32.shape[0] < 1 or tile % buckets or tiles < 1:
+        raise ValueError(f"flash_rerank: shapes minima {tuple(minima.shape)}, "
+                         f"q {tuple(q.shape)}, x_f32 {tuple(x_f32.shape)}, "
+                         f"tile {tile}, buckets {buckets}")
+    if not 1 <= shortlist <= tiles * buckets \
+            or not 1 <= k <= shortlist * (tile // buckets):
+        raise ValueError(f"flash_rerank: want 1 <= shortlist <= "
+                         f"{tiles * buckets} groups and 1 <= k <= its rows; "
+                         f"got shortlist {shortlist}, k {k}")
+    if n_valid is not None and n_valid < 0:
+        raise ValueError(f"flash_rerank: n_valid {n_valid} < 0")
+    if not (minima.device == q.device == x_f32.device):
+        raise ValueError("flash_rerank: inputs on different devices")
+
+
+def _flash_rerank_plain(minima: torch.Tensor, q: torch.Tensor,
+                        x_f32: torch.Tensor, k: int, metric: str = "l2",
+                        tile: int = 16384, buckets: int = 128,
+                        shortlist: int = 0, n_valid: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`flash_rerank`: the tie-rule top-k of
+    the minima, the gather of the member rows, f32 distances, the tie-rule
+    top-k of those."""
     if shortlist <= 0:
         shortlist = 2 * k
     b = q.shape[0]
@@ -203,6 +236,81 @@ def flash_rerank(minima: torch.Tensor, q: torch.Tensor, x_f32: torch.Tensor,
     return vals, torch.gather(rows, 1, pos)
 
 
+def flash_rerank(minima: torch.Tensor, q: torch.Tensor, x_f32: torch.Tensor,
+                 k: int, metric: str = "l2", tile: int = 16384,
+                 buckets: int = 128, shortlist: int = 0,
+                 n_valid: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The re-rank of :func:`flash_topk`: the ``shortlist`` smallest groups
+    of ``minima`` (equal minima by lowest group), each expanded to its
+    ``tile/L`` member rows in member order, re-scored exactly in f32 from
+    ``x_f32``; the ``k`` smallest, equal scores by shortlist position ->
+    (f32 ``[B, k]``, row ids int64 ``[B, k]``; a row past ``x_f32`` is
+    given as its last row). minima ``[T, B, L]``, q ``[B, D]`` and x_f32
+    ``[rows, D]``, all float32 and contiguous.
+
+    On a CUDA tensor it launches ``csrc/flash_rerank.cu`` (one launch, a
+    block a query) or raises; on a CPU tensor it runs the plain version
+    ``_flash_rerank_plain``, which has the same contract."""
+    if shortlist <= 0:
+        shortlist = 2 * k
+    _check_rerank(minima, q, x_f32, k, metric, tile, buckets, shortlist,
+                  n_valid)
+    if q.device.type == "cpu":
+        return _flash_rerank_plain(minima, q, x_f32, k, metric, tile, buckets,
+                                   shortlist, n_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_rerank: no kernel for {q.device}")
+    tiles, b, _ = minima.shape
+    d = q.shape[1]
+    n = tiles * tile
+    lib = _rerank_launcher()
+    words = lib.flash_rerank_scratch_words(b, shortlist, k, tile // buckets)
+    scratch = torch.empty(words, dtype=torch.int64, device=q.device)
+    vals = torch.empty((b, k), dtype=torch.float32, device=q.device)
+    ids = torch.empty((b, k), dtype=torch.int64, device=q.device)
+    # rows and the query read 16 bytes at a time where they allow it
+    vec = d % 4 == 0 and q.data_ptr() % 16 == 0 and x_f32.data_ptr() % 16 == 0
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_rerank_launch(
+            minima.data_ptr(), q.data_ptr(), x_f32.data_ptr(),
+            scratch.data_ptr(), words, vals.data_ptr(), ids.data_ptr(), tiles,
+            b, buckets, tile, x_f32.shape[0], d, _RERANK_METRICS[metric],
+            shortlist, k, n if n_valid is None else min(n_valid, n), int(vec),
+            stream)
+    if err:
+        msg = lib.flash_rerank_error_string(err).decode()
+        raise RuntimeError(f"flash_rerank launch failed: {msg} ({err})")
+    flash_rerank.launches += 1
+    return vals, ids
+
+
+flash_rerank.launches = 0
+
+_RERANK_METRICS = {"l2": 0, "ip": 1}
+# the C interface of csrc/flash_rerank.cu: minima, q, x, scratch; scratch
+# words; vals, ids; tiles, B, L, tile; rows; D, metric, shortlist, k;
+# n_valid; vec; stream
+_RERANK_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_longlong] \
+    + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+
+@functools.cache
+def _rerank_launcher() -> ctypes.CDLL:
+    """The re-rank kernel's library, built at first use, with its C
+    signatures."""
+    lib = _cuda.load("flash_rerank")
+    lib.flash_rerank_launch.argtypes = _RERANK_ARGTYPES
+    lib.flash_rerank_launch.restype = ctypes.c_int
+    lib.flash_rerank_scratch_words.argtypes = [ctypes.c_int] * 4
+    lib.flash_rerank_scratch_words.restype = ctypes.c_longlong
+    lib.flash_rerank_error_string.argtypes = [ctypes.c_int]
+    lib.flash_rerank_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def flash_topk(q: torch.Tensor, x_bf16: torch.Tensor, norms: torch.Tensor,
                x_f32: torch.Tensor, k: int, metric: str = "l2",
                tile: int = 16384, buckets: int = 128, shortlist: int = 0,
@@ -218,5 +326,5 @@ def flash_topk(q: torch.Tensor, x_bf16: torch.Tensor, norms: torch.Tensor,
     ``x_bf16`` may carry zero columns past ``q``'s width (the CUDA kernel
     needs ``D % 16 == 0``); they change no dot product."""
     minima = flash_scan(q, x_bf16, norms, metric, tile, buckets)
-    return flash_rerank(minima, q, x_f32, k, metric, tile, buckets,
-                        shortlist, n_valid)
+    return flash_rerank(minima, q.float().contiguous(), x_f32, k, metric,
+                        tile, buckets, shortlist, n_valid)

@@ -250,3 +250,119 @@ def test_cuda_source_exports_what_the_wrapper_binds():
         assert needle in src
     for needle in ("nvcuda", "wmma::", "getenv"):
         assert needle not in src
+
+
+def _rerank_inputs(seed=8, n=1000, d=32, b=8, tile=256, metric="l2"):
+    """(minima, q, x) as the server hands them to flash_rerank: the group
+    minima of the plain scan over the padded bf16 copy, f32 queries, the
+    real f32 rows alone."""
+    q, x, norms = _mk(seed=seed, n=n, d=d, b=b)
+    if metric == "ip":
+        norms = np.zeros_like(norms)
+    xb, npad, _ = tf.pad_for_flash(_bf16(x), torch.from_numpy(norms), tile)
+    qt = torch.from_numpy(q)
+    return (tf.flash_group_minima(qt, xb, npad, metric, tile=tile), qt,
+            torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("n_valid", [None, 1000, 900])
+def test_flash_rerank_cpu_is_the_plain_version(metric, n_valid):
+    """On CPU tensors the wrapper returns the plain version's answer, and
+    counts no launch."""
+    minima, q, x = _rerank_inputs(metric=metric)
+    before = tf.flash_rerank.launches
+    got = tf.flash_rerank(minima, q, x, 10, metric, tile=256, n_valid=n_valid)
+    want = tf._flash_rerank_plain(minima, q, x, 10, metric, tile=256,
+                                  shortlist=20, n_valid=n_valid)
+    assert tf.flash_rerank.launches == before
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int64
+
+
+def _bad_rerank_args(which):
+    minima, q, x = _rerank_inputs(seed=9)
+    args = dict(minima=minima, q=q, x_f32=x, k=10, metric="l2", tile=256,
+                buckets=128, shortlist=0, n_valid=None)
+    if which == "metric":
+        args["metric"] = "cosine"
+    elif which == "q_f64":
+        args["q"] = q.double()
+    elif which == "x_bf16":
+        args["x_f32"] = x.to(torch.bfloat16)
+    elif which == "q_strided":
+        args["q"] = torch.cat([q, q], 1)[:, ::2]
+    elif which == "minima_2d":
+        args["minima"] = minima[0]
+    elif which == "batch":
+        args["q"] = q[:-1].contiguous()
+    elif which == "width":
+        args["x_f32"] = x[:, :-1].contiguous()
+    elif which == "buckets":
+        args["buckets"] = 64
+    elif which == "shortlist":
+        args["shortlist"] = minima.shape[0] * 128 + 1
+    elif which == "k":
+        args["k"], args["shortlist"] = 2 * 3 + 1, 3    # past 3 groups' rows
+    elif which == "n_valid":
+        args["n_valid"] = -1
+    elif which == "no_rows":
+        args["x_f32"] = x[:0]
+    return args
+
+
+@pytest.mark.parametrize("which,error", [
+    ("metric", ValueError), ("q_f64", TypeError), ("x_bf16", TypeError),
+    ("q_strided", ValueError), ("minima_2d", ValueError),
+    ("batch", ValueError), ("width", ValueError), ("buckets", ValueError),
+    ("shortlist", ValueError), ("k", ValueError), ("n_valid", ValueError),
+    ("no_rows", ValueError)])
+def test_flash_rerank_checks_inputs(which, error):
+    args = _bad_rerank_args(which)
+    with pytest.raises(error):
+        tf.flash_rerank(**args)
+
+
+def test_flash_rerank_has_no_fallback_off_cpu():
+    """Only a CPU tensor takes the plain version; another device never falls
+    back to it (a CUDA tensor launches the kernel or raises)."""
+    minima, q, x = _rerank_inputs(seed=10)
+    before = tf.flash_rerank.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        tf.flash_rerank(minima.to("meta"), q.to("meta"), x.to("meta"), 10,
+                        "l2", tile=256)
+    assert tf.flash_rerank.launches == before
+
+
+def test_rerank_source_exports_what_the_wrapper_binds():
+    """Nothing compiles on the CPU: read the re-rank kernel's source and
+    check that its extern "C" block exports exactly the three functions
+    `_rerank_launcher` binds, with as many arguments as their ctypes
+    signatures, and that it is one design with no switch."""
+    import ctypes
+    import os
+    import re
+    from databend_tpu_torch.ops import _cuda
+    with open(os.path.join(_cuda.CSRC_DIR, "flash_rerank.cu")) as f:
+        src = f.read()
+    assert src.count('extern "C" {') == 1
+    block = re.sub(r"//[^\n]*", "", src[src.index('extern "C" {'):])
+    exported = {name: [a for a in args.split(",") if a.strip()]
+                for name, args in re.findall(
+                    r"^\w[^\n(]*?\b(\w+)\s*\(([^)]*)\)\s*\{", block, re.M)}
+    assert set(exported) == {"flash_rerank_launch",
+                             "flash_rerank_scratch_words",
+                             "flash_rerank_error_string"}
+    args = exported["flash_rerank_launch"]
+    assert len(args) == len(tf._RERANK_ARGTYPES) == 19
+    for arg, ctype in zip(args, tf._RERANK_ARGTYPES):
+        assert ("*" in arg) == (ctype is ctypes.c_void_p), arg
+        if ctype is ctypes.c_longlong:
+            assert "long long" in arg, arg
+    assert len(exported["flash_rerank_scratch_words"]) == 4
+    assert len(exported["flash_rerank_error_string"]) == 1
+    # the symbol the benchmark counts chunks by, and a library call, are
+    # not in it
+    for needle in ("flash_group_minima_kernel", "getenv", "cub::", "thrust"):
+        assert needle not in src
